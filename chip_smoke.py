@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the CUDA kernels from ``predict_pv_yield_tpu_torch/csrc``;
+  1. build the CUDA kernels from ``predict_pv_yield_tpu_torch/csrc``; print
+     the instantiations' registers and spills from ``ptxas -v``, and fail
+     if a radius that phase 2 times spills;
   2. hold each kernel to its plain PyTorch version on the card, at the shapes
-     the flow path gives it, and time kernel, plain version and the cuDNN
-     yardstick against the card's bound;
+     the flow path gives it and at edge shapes, and time kernel, plain
+     version and the cuDNN yardstick against the card's bound. Times are the
+     device's own record (``torch.profiler`` kernel durations); ``call_ms``
+     is the wall time of one wrapper call, host cost included;
   3. nowcast at the headline: one 49-frame 256² super batch through
      ``SatelliteFlowLoader.load_super_batch`` (flows of all 48 pairs, dense
      predictions), flows checked against the port's CPU run, pairs/s;
@@ -24,6 +28,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,23 +62,42 @@ def peaks(name: str):
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
-def time_ms(fn, min_seconds: float = 0.2) -> float:
-    """Mean milliseconds per call over a run of calls, CUDA events, after a
-    warm-up call."""
+def device_ms(fn, kernel: str | None = None, calls: int = 50) -> float:
+    """Mean device milliseconds per call: the durations ``torch.profiler``
+    records on the card for ``calls`` calls after a warm-up call. With
+    ``kernel``, only the kernels whose name holds it (one launch per call is
+    checked); else every kernel and copy of the call. Host dispatch between
+    launches is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
-    reps = 1
-    while True:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
             fn()
-        end.record()
         torch.cuda.synchronize()
-        elapsed = start.elapsed_time(end)
-        if elapsed >= min_seconds * 1e3 or reps >= 1024:
-            return elapsed / reps
-        reps *= 4
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel is None or kernel in e.key)]
+    if kernel is not None:
+        count = sum(e.count for e in events)
+        check(count == calls, f"profiler saw {count} launches of {kernel}, expected {calls}")
+    total_us = sum(e.self_device_time_total for e in events)
+    check(total_us > 0, "the profiler recorded no device time")
+    return total_us / calls / 1e3
+
+
+def call_ms(fn, calls: int = 50) -> float:
+    """Mean wall milliseconds per call of a run of calls (CUDA events around
+    the run, warm-up first): device time plus whatever the host adds."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def check(condition: bool, message: str) -> None:
@@ -90,14 +114,55 @@ def phase_build():
     seconds = time.perf_counter() - start
     info = _build.build_info["sep_blur"]
     log(f"[build] sep_blur.cu: {seconds:.2f} s (nvcc {info['seconds']:.2f} s)")
+    if not info["log"]:  # the library was reused
+        return
+    # ptxas -v: one instantiation per radius; registers, spills, static smem
+    radius, per_radius = None, {}
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build]   {line.strip()}")
+        found = re.search(r"Compiling entry function '.*sep_blur_kernelILi(\d+)E", line)
+        if found:
+            radius = int(found.group(1))
+            per_radius[radius] = {"registers": 0, "spill_bytes": 0, "smem": 0}
+        elif radius is not None and "spill" in line:
+            per_radius[radius]["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif radius is not None and "registers" in line:
+            per_radius[radius]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            per_radius[radius]["smem"] = int(smem.group(1)) if smem else 0
+    radii = (sep_blur.MAX_TAPS + 1) // 2
+    check(len(per_radius) == radii, f"ptxas reported {len(per_radius)} instantiations, expected {radii}")
+    for key in ("registers", "smem"):
+        values = sorted({v[key] for v in per_radius.values()})
+        log(f"[build]   {key} per instantiation (r = 0..{radii - 1}): {values}")
+    spills = {r: v["spill_bytes"] for r, v in sorted(per_radius.items()) if v["spill_bytes"]}
+    log(f"[build]   spill bytes by radius: {spills or 'none'}")
+    timed = {len(t) // 2 for _, _, t in _kernel_cases()}
+    check(not timed & spills.keys(), f"a radius the cases time spills: {spills}")
 
 
 def _pyramid(height: int, width: int):
     """The three level sizes of the flow pyramid (levels=2, pyr_scale 0.5)."""
     return [(round(height * 0.5**k), round(width * 0.5**k)) for k in range(3)]
+
+
+def _kernel_cases():
+    """(label, shape, taps) of the timed kernel cases: every level of the
+    headline and production pyramids (winsize 40: 41 Gaussian taps), a box
+    window, and edge shapes: planes smaller than the window, a plane shorter
+    than one band of rows and 200 wide, and a radius off the flow path."""
+    from predict_pv_yield_tpu_torch.ops.optical_flow import _window_taps
+
+    gaussian, box = _window_taps(40, True), _window_taps(15, False)
+    pairs = FRAMES - 1
+    return [
+        *((f"headline L{k}", (pairs, 5, *hw), gaussian) for k, hw in enumerate(_pyramid(SIDE, SIDE))),
+        *((f"production L{k}", (pairs, 5, *hw), gaussian) for k, hw in enumerate(_pyramid(*PRODUCTION))),
+        ("box r=7", (pairs, 5, SIDE // 2, SIDE // 2), box),
+        ("edge 32x32", (pairs, 5, 32, 32), gaussian),
+        ("edge 17x200", (2, 5, 17, 200), gaussian),
+        ("31 taps", (pairs, 5, SIDE // 2, SIDE // 2), _window_taps(30, True)),
+    ]
 
 
 def phase_kernels(device, bandwidth, flops_peak):
@@ -107,19 +172,9 @@ def phase_kernels(device, bandwidth, flops_peak):
     from predict_pv_yield_tpu_torch.ops import sep_blur as blur
     from predict_pv_yield_tpu_torch.ops.optical_flow import _window_taps
 
-    gaussian, box = _window_taps(40, True), _window_taps(15, False)
-    pairs = FRAMES - 1
-    # (label, shape, taps): every level of the headline and production
-    # pyramids (winsize 40: 41 Gaussian taps), and a box window
-    cases = [
-        *((f"headline L{k}", (pairs, 5, *hw), gaussian) for k, hw in enumerate(_pyramid(SIDE, SIDE))),
-        *((f"production L{k}", (pairs, 5, *hw), gaussian) for k, hw in enumerate(_pyramid(*PRODUCTION))),
-        ("box r=7", (pairs, 5, SIDE // 2, SIDE // 2), box),
-    ]
     generator = torch.Generator(device=device).manual_seed(0)
-    rows = []
-    for label, shape, taps in cases:
-        fields = torch.randn(shape, generator=generator, device=device)
+
+    def held_to_plain(label, fields, taps):
         out = blur.sep_blur(fields, taps)
         plain = blur.sep_blur_reference(fields, taps)
         torch.cuda.synchronize()
@@ -127,8 +182,27 @@ def phase_kernels(device, bandwidth, flops_peak):
         scale = float(plain.abs().max())
         check(
             err <= BLUR_REL_TOL * scale,
-            f"sep_blur {label} {shape}: max|kernel-plain| {err:.3e} > {BLUR_REL_TOL}*{scale:.3e}",
+            f"sep_blur {label} {tuple(fields.shape)}: max|kernel-plain| {err:.3e} > "
+            f"{BLUR_REL_TOL}*{scale:.3e}",
         )
+        return err
+
+    # every tap count the kernel takes, on a ragged plane, and a plane count
+    # over the 65,535 that one launch takes
+    worst = 0.0
+    for n_taps in range(1, blur.MAX_TAPS + 1, 2):
+        fields = torch.randn((3, 5, 45, 70), generator=generator, device=device)
+        taps = torch.rand(n_taps, generator=generator, device=device).cpu().numpy()
+        worst = max(worst, held_to_plain(f"{n_taps} taps", fields, taps))
+    held_to_plain("65,540 planes", torch.randn((13108, 5, 6, 7), generator=generator, device=device),
+                  _window_taps(4, True))
+    log(f"[kernel] tap counts 1..{blur.MAX_TAPS} at (3,5,45,70) and (13108,5,6,7): "
+        f"within {BLUR_REL_TOL} of max |plain|; max abs err {worst:.3e}")
+
+    rows = []
+    for label, shape, taps in _kernel_cases():
+        fields = torch.randn(shape, generator=generator, device=device)
+        err = held_to_plain(label, fields, taps)
         radius = len(taps) // 2
         k = torch.as_tensor(taps, device=device)
         wx = k.view(1, 1, 1, -1).repeat(5, 1, 1, 1)
@@ -147,15 +221,17 @@ def phase_kernels(device, bandwidth, flops_peak):
             "shape": list(shape),
             "taps": len(taps),
             "max_abs_err": err,
-            "ms": time_ms(lambda: blur.sep_blur(fields, taps)),
-            "plain_ms": time_ms(lambda: blur.sep_blur_reference(fields, taps)),
-            "library_ms": time_ms(library),
+            "ms": device_ms(lambda: blur.sep_blur(fields, taps), kernel="sep_blur_kernel"),
+            "plain_ms": device_ms(lambda: blur.sep_blur_reference(fields, taps)),
+            "library_ms": device_ms(library),
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "call_ms": call_ms(lambda: blur.sep_blur(fields, taps)),
         }
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         log("[kernel] " + json.dumps(row))
-        del fields, out, plain
+        del fields
     return rows
 
 
@@ -321,6 +397,7 @@ def main() -> int:
         "bound_ms": headline["bound_ms"],
         "bound_by": headline["bound_by"],
         "library_ms": headline["library_ms"],
+        "call_ms": headline["call_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate}))
     log(card)

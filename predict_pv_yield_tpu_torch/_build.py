@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). The library goes to
 ``build/torch_kernels/`` at the repository root, named by a hash of its
-source and flags: a changed source rebuilds, an unchanged one is reused.
+source, the ``csrc/*.cuh`` headers and the flags: a changed source or
+header rebuilds, an unchanged one is reused.
 Nothing is built at import time; the first call that needs a kernel builds
 it.
 """
@@ -52,7 +53,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every header beside it, so that a changed header rebuilds
+    files = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    source = b"".join(f.read_bytes() for f in files)
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -5,9 +5,14 @@ The Farnebäck update averages its five accumulator fields over the
 The JAX package computes that with XLA grouped convolutions and keeps a
 Pallas banded-matmul kernel (``sep_blur_pallas``) as a measured negative
 result on the TPU. On Hopper the blur is a hand-written CUDA stencil,
-``csrc/sep_blur.cu``: one block per plane tile stages the tile and its halo
-in shared memory and runs both passes there, so the W-pass intermediate
-never goes to device memory (the kernel's source note gives its bound).
+``csrc/sep_blur.cu``: a block walks down a tile of up to 256 columns in
+32-row bands, H pass first straight from device memory, W pass from the
+H-passed band in shared memory, so the intermediate never goes to device
+memory; each thread emits a strip of outputs from a window held in
+registers, and the radius is a compile-time parameter (one instantiation per
+radius 0..32), so every tap is one FMA with its weight as an operand. The
+kernel's source note gives its bound and what each part of the design does
+about it.
 
 ``sep_blur`` launches that kernel for a CUDA tensor and uses the plain
 version ``sep_blur_reference`` only for a tensor on the CPU. ``launches``

@@ -17,10 +17,15 @@ from jax.experimental import pallas as pl
 
 from predict_pv_yield_tpu.ops import pallas_blur as pb
 from predict_pv_yield_tpu.ops.optical_flow import _gaussian_kernel
+from predict_pv_yield_tpu_torch import _build
 from predict_pv_yield_tpu_torch.ops import sep_blur as port
 
 # (shape, radius): the Farnebäck window at winsize 40, and a ragged plane
 CASES = [((2, 5, 64, 64), 20), ((2, 5, 37, 53), 7)]
+# shapes where the kernel's tiling is most likely to go wrong, at winsize
+# 40: the production pyramid's ragged level 2, a plane smaller than the
+# window, and a plane shorter than one band and wider than the window
+EDGE_CASES = [((1, 5, 176, 137), 20), ((1, 5, 16, 16), 20), ((1, 5, 17, 200), 20)]
 
 
 def _taps(radius, gaussian):
@@ -63,7 +68,11 @@ def _pallas_interpreted(fields, kernel, tile):
 
 
 @pytest.mark.parametrize("gaussian", [True, False], ids=["gaussian", "box"])
-@pytest.mark.parametrize("shape,radius", CASES, ids=["64x64_r20", "37x53_r7"])
+@pytest.mark.parametrize(
+    "shape,radius",
+    CASES + EDGE_CASES,
+    ids=["64x64_r20", "37x53_r7", "176x137_r20", "16x16_r20", "17x200_r20"],
+)
 def test_plain_matches_xla_path(shape, radius, gaussian):
     fields = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
     taps = _taps(radius, gaussian)
@@ -106,3 +115,16 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 def test_wrapper_rejects(fields, taps, error):
     with pytest.raises(error):
         port.sep_blur(fields, taps)
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    """A changed header under csrc/ rebuilds the kernel: it changes the name
+    the built library is cached under."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "kernel.cu").write_text('#include "kernel.cuh"\n')
+    (tmp_path / "kernel.cuh").write_text("// one\n")
+    first = _build.library_path("kernel")
+    (tmp_path / "kernel.cuh").write_text("// two\n")
+    assert _build.library_path("kernel") != first
+    (tmp_path / "kernel.cuh").write_text("// one\n")
+    assert _build.library_path("kernel") == first
