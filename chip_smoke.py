@@ -1,4 +1,5 @@
-"""Drive the PyTorch / CUDA port of the optical-flow nowcast on one GPU.
+"""Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast and
+the conv3d_sat_nwp serve path.
 
     python3 chip_smoke.py
 
@@ -18,11 +19,21 @@ Phases (any failure exits non-zero):
      ``FlowForecaster(32)``, scored by SSIM against flow-only and
      persistence;
   5. production geometry: ``flow_sequence`` on 49×704×548 frames;
-  6. the ``kernels`` line, then the result line.
+  6. serve: the conv3d_sat_nwp flagship at the full width of
+     ``configs/model/conv3d_sat_nwp.yaml`` (a literal copy below) through
+     ``predict.run`` on 8 fake batches of 32 (CSV rows, finite forecasts,
+     NMAE line); card forward vs the port's CPU forward (≤ 1e-4, TF32 off);
+     the satellite decode of int16 counts with −1 holes, card bit-equal to
+     CPU in both layouts, timed against its bound; a Lightning ``.ckpt``
+     round trip; an invalid GSP id giving a NaN row; forward device time
+     with its top kernels, ``predict`` wall time per batch, examples/s, the
+     device's busy share, and the steady rate of 24 more batches;
+  7. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
-path (phases 3 and 4) and read just after. Needs a CUDA card; imports
-nothing of JAX.
+path (phases 3 and 4) and read just after; the serve path runs no hand
+kernel (the JAX package computes it with XLA, outside any Pallas kernel).
+Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +61,33 @@ PRODUCTION = (704, 548)  # the full-extent nb13 HRV window (tools/flow_bench.py:
 FLOW_MEAN_TOL, FLOW_MAX_TOL, FLOW_MARGIN = 1e-4, 1e-3, 2  # tests/test_opencv_parity.py
 BLUR_REL_TOL = 2e-5  # max |kernel − plain| ≤ BLUR_REL_TOL · max |plain|
 
+#: configs/model/conv3d_sat_nwp.yaml as a literal (tests/test_torch_predict.py
+#: holds the two equal); the model defaults it leaves unset give 10 NWP
+#: channels at 64 px, embedding_dem 16 and batch 32
+CONV3D_SAT_NWP = {
+    "_target_": "predict_pv_yield_tpu.models.conv3d_sat_nwp.Model",
+    "include_pv_or_gsp_yield_history": True,
+    "include_nwp": True,
+    "forecast_minutes": 120,
+    "history_minutes": 30,
+    "number_of_conv3d_layers": 6,
+    "image_size_pixels": 24,
+    "number_sat_channels": 11,
+    "conv3d_channels": 32,
+    "fc1_output_features": 128,
+    "fc2_output_features": 128,
+    "fc3_output_features": 64,
+    "output_variable": "gsp_yield",
+    "include_pv_yield_history": False,
+    "include_future_satellite": True,
+}
+#: the satellite channels of the predict tool's fake data for that YAML
+CONV3D_SAT_NWP_CHANNELS = ("IR_016", "IR_039", "IR_087", "IR_097", "IR_108", "IR_120",
+                           "IR_134", "VIS006", "VIS008", "WV_062", "WV_073")
+SERVE_BATCHES = 8
+STEADY_REPEATS = 4  # the steady serve rate runs the 8 batches 4 times over
+SERVE_TOL = 1e-4  # card vs CPU forward, tests/test_convert.py:427
+
 
 def log(message: str) -> None:
     print(message, flush=True)
@@ -62,12 +100,10 @@ def peaks(name: str):
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
-def device_ms(fn, kernel: str | None = None, calls: int = 50) -> float:
-    """Mean device milliseconds per call: the durations ``torch.profiler``
-    records on the card for ``calls`` calls after a warm-up call. With
-    ``kernel``, only the kernels whose name holds it (one launch per call is
-    checked); else every kernel and copy of the call. Host dispatch between
-    launches is not counted."""
+def _device_events(fn, calls: int, kernel: str | None = None):
+    """``torch.profiler``'s per-name device records (kernels and copies) of
+    ``calls`` calls after a warm-up call; with ``kernel``, only the names
+    that hold it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -76,8 +112,17 @@ def device_ms(fn, kernel: str | None = None, calls: int = 50) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and (kernel is None or kernel in e.key)]
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and (kernel is None or kernel in e.key)]
+
+
+def device_ms(fn, kernel: str | None = None, calls: int = 50) -> float:
+    """Mean device milliseconds per call: the durations ``torch.profiler``
+    records on the card for ``calls`` calls after a warm-up call. With
+    ``kernel``, only the kernels whose name holds it (one launch per call is
+    checked); else every kernel and copy of the call. Host dispatch between
+    launches is not counted."""
+    events = _device_events(fn, calls, kernel)
     if kernel is not None:
         count = sum(e.count for e in events)
         check(count == calls, f"profiler saw {count} launches of {kernel}, expected {calls}")
@@ -355,6 +400,222 @@ def phase_production(device):
     return rate
 
 
+def _busy_share(fn):
+    """(share of the wall time the device is busy, wall seconds) of one
+    traced call: the union of the kernel and copy intervals the profiler
+    records on the card over the host clock around the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(spans), "the profiler recorded no device activity")
+    busy, (lo, hi) = 0.0, spans[0]
+    for start_us, end_us in spans[1:]:
+        if start_us > hi:
+            busy += hi - lo
+            lo, hi = start_us, end_us
+        else:
+            hi = max(hi, end_us)
+    busy += hi - lo
+    return busy / (wall * 1e6), wall
+
+
+def _serve_cli(device, tmp):
+    """(a, b) ``predict.run`` on a literal copy of the model YAML: 8 fake
+    batches of 32, the forecast CSV and the NMAE line."""
+    import contextlib
+    import csv
+    import io
+    import math
+    import os
+
+    from predict_pv_yield_tpu_torch import predict as serve
+
+    out = os.path.join(tmp, "forecasts.csv")
+    printed = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        result = serve.run(CONV3D_SAT_NWP, n_batches=SERVE_BATCHES, out=out, with_nmae=True, device=device)
+    seconds = time.perf_counter() - start
+    with open(out, newline="") as fh:
+        rows = list(csv.reader(fh))
+    expected = SERVE_BATCHES * 32 * 4
+    check(rows[0] == ["batch_index", "example_index", "forecast_horizon", "forecast"], f"CSV header {rows[0]}")
+    check(len(rows) - 1 == result["rows"] == expected, f"{len(rows) - 1} CSV rows, expected {expected}")
+    check(all(math.isfinite(float(row[3])) for row in rows[1:]), "a non-finite forecast")
+    check("NMAE: " in printed.getvalue() and math.isfinite(result["nmae"]), "no NMAE line")
+    for line in printed.getvalue().splitlines():
+        log(f"[serve] {line}")
+    log(f"[serve] predict.run, {SERVE_BATCHES}x32 fake examples (model build, fake data and the NMAE "
+        f"pass included, first call): {seconds:.3f} s")
+
+
+def _serve_decode(device, batch, bandwidth):
+    """(d) The satellite decode of int16 counts with −1 holes on the card,
+    bit-equal to the CPU decode in both layouts; device ms vs its bound."""
+    from predict_pv_yield_tpu_torch.data.batch import Batch, SatelliteBatch
+    from predict_pv_yield_tpu_torch.data.preprocess import channel_stats, decode_satellite, preprocess_batch
+
+    names = CONV3D_SAT_NWP_CHANNELS
+    mean, std = channel_stats(names)
+    shape = (1, -1, 1, 1, 1)
+    counts = torch.round(batch.satellite.data * std.view(shape) + mean.view(shape)).clamp(0, 1023).to(torch.int16)
+    holes = torch.rand(counts.shape, generator=torch.Generator().manual_seed(2)) < 0.05
+    counts[holes] = -1
+    rows = []
+    for channel_last in (False, True):
+        raw = counts.permute(0, 2, 3, 4, 1).contiguous() if channel_last else counts
+        host = preprocess_batch(Batch(satellite=SatelliteBatch(data=raw, channel_last=channel_last)), names)
+        card_raw = raw.to(device)
+        card = preprocess_batch(Batch(satellite=SatelliteBatch(data=card_raw, channel_last=channel_last)), names)
+        equal = torch.equal(card.satellite.data.cpu(), host.satellite.data)
+        check(equal, f"card decode differs from the CPU decode (channel_last={channel_last})")
+        mean_d, std_d = channel_stats(names, device)
+        ms = device_ms(lambda: decode_satellite(card_raw, mean_d, std_d, channel_last=channel_last))
+        bound = raw.numel() * (2 + 4) / bandwidth * 1e3
+        row = {"layout": "channel_last" if channel_last else "canonical", "shape": list(raw.shape),
+               "holes": int(holes.sum()), "bit_equal": equal, "ms": ms, "bound_ms": bound,
+               "share_of_bound": bound / ms}
+        log("[serve] decode " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def phase_serve(device, bandwidth, flops_peak):
+    """The conv3d_sat_nwp serve path at the full width of its YAML."""
+    import dataclasses
+    import tempfile
+
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+    from predict_pv_yield_tpu_torch.utils import full_fp32
+
+    blur.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        _serve_cli(device, tmp)
+
+        # (a) the model, seeded, eval mode; the predict tool's fake batches
+        model = serve.build_model("conv3d_sat_nwp", CONV3D_SAT_NWP, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        loader = serve.fake_loader(model, SERVE_BATCHES)
+        check(serve.channel_names_of(loader) == CONV3D_SAT_NWP_CHANNELS, "satellite channels")
+        batches = list(loader)
+        host = batches[0].numeric()
+        log(f"[serve] conv3d_sat_nwp: {n_params:,} parameters; satellite "
+            f"{tuple(host.satellite.data.shape)}, NWP {tuple(host.nwp.data.shape)}")
+
+        # (c) card against CPU, same weights, TF32 off
+        with torch.inference_mode(), full_fp32():
+            on_cpu = model(host)
+        model.to(device)
+        card_batch = host.to(device)
+        with torch.inference_mode(), full_fp32():
+            on_card = model(card_batch)
+        err = float((on_card.cpu() - on_cpu).abs().max())
+        log(f"[serve] card vs CPU forward {tuple(on_card.shape)}: max abs diff {err:.3e} (limit {SERVE_TOL})")
+        check(tuple(on_card.shape) == (32, 4) and bool(torch.isfinite(on_card).all()), "forward shape or NaN")
+        check(err <= SERVE_TOL, "card forward disagrees with the CPU forward")
+
+        decode_rows = _serve_decode(device, batches[0], bandwidth)
+
+        # (e) Lightning checkpoint round trip through the CLI's loader
+        ckpt = f"{tmp}/conv3d_sat_nwp.ckpt"
+        torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+        loaded = serve.build_model("conv3d_sat_nwp", CONV3D_SAT_NWP, checkpoint=ckpt, seed=1).to(device)
+        with torch.inference_mode(), full_fp32():
+            again = loaded(card_batch)
+        check(torch.equal(again, on_card), "the .ckpt round trip changed the forecasts")
+        log("[serve] .ckpt round trip (strict=True): forecasts equal")
+        del loaded
+
+    # (f) an invalid GSP id gives a NaN row, and no device-side assert
+    gsp_id = card_batch.gsp.gsp_id.clone()
+    gsp_id[0, 0], gsp_id[1, 0] = 5000, -1
+    bad = card_batch.replace(gsp=dataclasses.replace(card_batch.gsp, gsp_id=gsp_id))
+    with torch.inference_mode(), full_fp32():
+        out = model(bad)
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(out[:2]).all()) and bool(torch.isfinite(out[2:]).all()),
+          "invalid ids did not give NaN rows (only those)")
+    log("[serve] invalid GSP ids 5000 and -1: NaN rows 0 and 1, the other rows finite")
+
+    # (g) timing: warm forward on the card, then predict with the copies
+    def forward():
+        with torch.inference_mode(), full_fp32():
+            model(card_batch)
+
+    events = _device_events(forward, calls=10)
+    forward_ms = sum(e.self_device_time_total for e in events) / 10 / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    flops = 2 * _conv3d_sat_nwp_macs(model) * 32
+    bound_ms = flops / flops_peak * 1e3
+    log(f"[serve] forward device time per batch of 32: {forward_ms:.4f} ms; fp32 bound "
+        f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP), {bound_ms / forward_ms:.1%} of it")
+    for e in top:
+        log(f"[serve]   {e.self_device_time_total / 10 / 1e3:8.4f} ms  x{e.count // 10:<3d} {e.key[:110]}")
+
+    def serve_batches(repeats: int = 1):
+        serve.predict(model, batches * repeats, device)
+
+    def seconds_per_call(repeats: int, runs: int = 5) -> float:
+        """Median host seconds of ``runs`` warm calls: the host is shared,
+        and a mean takes in whatever else ran on it."""
+        serve_batches(repeats)
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            serve_batches(repeats)
+            times.append(time.perf_counter() - start)
+        return float(np.median(times))
+
+    seconds = seconds_per_call(1)
+    wall_ms = seconds / SERVE_BATCHES * 1e3
+    rate = SERVE_BATCHES * 32 / seconds
+    busy, traced = _busy_share(serve_batches)
+    log(f"[serve] predict over {SERVE_BATCHES} host batches of 32 (pinned copies included): "
+        f"{wall_ms:.4f} ms per batch, {rate:.2f} examples/s; device busy {busy:.1%} of a traced "
+        f"call ({traced * 1e3:.3f} ms)")
+    # the steady rate: the batches a longer call adds, so that the fill of
+    # the copy pipeline and the last forecasts' copy back drop out
+    long_batches = SERVE_BATCHES * STEADY_REPEATS
+    long_seconds = seconds_per_call(STEADY_REPEATS)
+    steady_rate = (long_batches - SERVE_BATCHES) * 32 / (long_seconds - seconds)
+    log(f"[serve] predict over {long_batches} host batches of 32: {long_seconds / long_batches * 1e3:.4f} ms "
+        f"per batch, {long_batches * 32 / long_seconds:.2f} examples/s; steady rate of the "
+        f"{long_batches - SERVE_BATCHES} batches it adds: {steady_rate:.2f} examples/s")
+    check(blur.launches == 0, "the serve path launched sep_blur")
+    return {"serve_examples_per_s": rate, "serve_steady_examples_per_s": steady_rate,
+            "serve_forward_ms": forward_ms, "serve_wall_ms_per_batch": wall_ms,
+            "serve_busy_share": busy, "decode_ms": decode_rows[0]["ms"],
+            "decode_bound_ms": decode_rows[0]["bound_ms"]}
+
+
+def _conv3d_sat_nwp_macs(model) -> int:
+    """Multiply-accumulates of one example's forward, from the layer
+    shapes: each conv's output elements × its kernel volume × input
+    channels, plus every linear layer's weights."""
+    import torch.nn as nn
+
+    macs = 0
+    towers = (("sat_conv", model.sat_time_steps, model.image_size_pixels),
+              ("nwp_conv", model.seq_lens.seq_len_60, model.nwp_image_size_pixels))
+    for prefix, time_steps, size in towers:
+        for i in range(model.number_of_conv3d_layers):
+            conv = getattr(model, f"{prefix}{i}")
+            size -= 2
+            macs += conv.weight.numel() * time_steps * size * size
+    macs += sum(m.weight.numel() for m in model.modules() if isinstance(m, nn.Linear))
+    return macs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -380,6 +641,7 @@ def main() -> int:
     loader, load_launches, headline_rate = phase_nowcast(device)
     request_launches, _ = phase_requests(device, loader)
     production_rate = phase_production(device)
+    serve = phase_serve(device, bandwidth, flops_peak)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -399,7 +661,7 @@ def main() -> int:
         "library_ms": headline["library_ms"],
         "call_ms": headline["call_ms"],
     }]
-    log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate}))
+    log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -24,30 +24,18 @@ Parameters are initialised with PyTorch's default bounds (uniform in
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
+
+from predict_pv_yield_tpu_torch.models.layers import init_parameters
 
 #: Example/batch field names (notebook 13 cell 17 constants).
 TARGET_SAT_IMAGE = "target_sat_image"
 FORECAST_HORIZON = "forecast_horizon"
 HISTORICAL_SAT_IMAGES = "historical_sat_images"
 OPTICAL_FLOW_PREDICTIONS = "optical_flow_predictions"
-
-
-def init_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Re-draw every conv weight and bias uniformly in ±1/sqrt(fan_in) (the
-    bound of PyTorch's own default init) from ``generator``."""
-    with torch.no_grad():
-        for layer in module.modules():
-            if isinstance(layer, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
-                weight = layer.weight
-                fan_in = weight.shape[1] * math.prod(weight.shape[2:])
-                bound = 1.0 / math.sqrt(fan_in)
-                weight.uniform_(-bound, bound, generator=generator)
-                layer.bias.uniform_(-bound, bound, generator=generator)
 
 
 def _horizon_plane(batch: dict, like: torch.Tensor) -> torch.Tensor:
