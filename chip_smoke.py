@@ -1,5 +1,5 @@
 """Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast and
-the conv3d_sat_nwp serve path.
+the conv3d_sat_nwp serve and train paths.
 
     python3 chip_smoke.py
 
@@ -28,11 +28,26 @@ Phases (any failure exits non-zero):
      round trip; an invalid GSP id giving a NaN row; forward device time
      with its top kernels, ``predict`` wall time per batch, examples/s, the
      device's busy share, and the steady rate of 24 more batches;
-  7. the ``kernels`` line, then the result line.
+  7. train: the same model through the port's ``Trainer`` (TF32 off):
+     (a) one step at batch 4 on the card against the same step on the CPU
+     from the same seed-0 weights (NMAE ≤ 2e-6; every gradient within 3 ×
+     the spread of the CPU's two fp32 implementations, at least 1e-4, of
+     its largest entry; parameters after the Adam step ≤ 1e-3);
+     (b) ``Trainer.fit`` over 24 train and 4 validation batches of 32,
+     generated before timing, with ``ModelCheckpoint``, ``EarlyStopping``
+     and ``CSVLogger``: the train step's device ms and top kernels, its
+     bound from the layer shapes, the median steady examples/s of the last
+     16 steps, the busy share of a traced fit, and the CSVs checked; (c)
+     ``last`` loaded into a fresh trainer: parameters, Adam moments and
+     step and the loop counters bit-equal, the next step's NMAE within
+     1e-6; (d) ``train(config)`` on a literal of the composed
+     ``experiment=conv3d_sat_nwp`` config (``TRAIN_OVERRIDES``);
+  8. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
-path (phases 3 and 4) and read just after; the serve path runs no hand
-kernel (the JAX package computes it with XLA, outside any Pallas kernel).
+path (phases 3 and 4) and read just after; the serve and train paths run no
+hand kernel (the JAX package computes them with XLA, outside any Pallas
+kernel), and their phases check that ``sep_blur`` launched 0 times.
 Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -88,6 +103,45 @@ SERVE_BATCHES = 8
 STEADY_REPEATS = 4  # the steady serve rate runs the 8 batches 4 times over
 SERVE_TOL = 1e-4  # card vs CPU forward, tests/test_convert.py:427
 
+PARITY_BATCH = 4  # (a): the CPU side of the one-step parity stays cheap
+STEP_LOSS_TOL, GRAD_REL_TOL, STEP_PARAM_TOL = 2e-6, 1e-4, 1e-3  # 1e-3 = 2·lr: Adam moves ~0 gradients by ±lr
+GRAD_SPREAD_FACTOR = 3  # card gradients vs CPU: ≤ 3 × the CPU's own fp32 spread (see _train_parity)
+TRAIN_BATCHES, TRAIN_UNIQUE, VAL_BATCHES, STEADY_STEPS = 24, 8, 4, 16
+ROUND_TRIP_TOL = 1e-6
+
+#: the port's ``compose`` of these overrides, as a literal (the card's
+#: machine need not have PyYAML; tests/test_torch_composer.py holds the two
+#: equal). The run dirs, ``work_dir`` and ``data_dir`` are left out: they
+#: hold the clock and the cwd, and only the CLI reads them.
+TRAIN_OVERRIDES = [
+    "experiment=conv3d_sat_nwp", "datamodule.fake_data=true", "datamodule.n_train_data=2",
+    "datamodule.n_val_data=1", "trainer.max_epochs=1", "+optimized_metric=MSE/Validation_epoch",
+]
+TRAIN_CONFIG = {
+    "trainer": {"_target_": "predict_pv_yield_tpu.training.engine.Trainer", "min_epochs": 1, "max_epochs": 1,
+                "resume_from_checkpoint": None, "fast_dev_run": False, "profiler": "simple"},
+    "model": CONV3D_SAT_NWP,
+    "datamodule": {"_target_": "predict_pv_yield_tpu.data.loader.NetCDFDataModule", "temp_path": ".",
+                   "n_train_data": 2, "n_val_data": 1, "num_workers": 8, "pin_memory": True,
+                   "data_path": "data/prepared_ML_training_data/v15/", "fake_data": True, "shuffle_train": True},
+    "callbacks": {
+        "model_checkpoint": {"_target_": "predict_pv_yield_tpu.training.callbacks.ModelCheckpoint",
+                             "monitor": "MSE/Validation_epoch", "mode": "min", "save_top_k": 1, "save_last": True,
+                             "verbose": False, "dirpath": "checkpoints/", "filename": "epoch_{epoch:03d}",
+                             "auto_insert_metric_name": False},
+        "early_stopping": {"_target_": "predict_pv_yield_tpu.training.callbacks.EarlyStopping",
+                           "monitor": "MSE/Validation_epoch", "mode": "min", "patience": 5, "min_delta": 0},
+    },
+    "logger": {"csv": {"_target_": "predict_pv_yield_tpu.training.loggers.CSVLogger", "save_dir": ".",
+                       "name": "csv/", "version": None, "prefix": ""}},
+    "debug": False,
+    "print_config": True,
+    "ignore_warnings": True,
+    "test_after_training": True,
+    "seed": 518,
+    "optimized_metric": "MSE/Validation_epoch",
+}
+
 
 def log(message: str) -> None:
     print(message, flush=True)
@@ -100,20 +154,26 @@ def peaks(name: str):
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
-def _device_events(fn, calls: int, kernel: str | None = None):
+def _device_events(fn, calls: int, kernel: str | None = None, attempts: int = 3):
     """``torch.profiler``'s per-name device records (kernels and copies) of
     ``calls`` calls after a warm-up call; with ``kernel``, only the names
-    that hold it."""
+    that hold it. A trace that comes back without device records (CUPTI
+    now and then delivers none) is taken again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and (kernel is None or kernel in e.key)]
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        # user annotations (``Optimizer.step#Adam.step``) span kernels already counted
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False) and (kernel is None or kernel in e.key)]
+        if any(e.self_device_time_total > 0 for e in events) or attempt == attempts:
+            return events
+        log(f"[profiler] no device records in trace {attempt}; tracing again")
 
 
 def device_ms(fn, kernel: str | None = None, calls: int = 50) -> float:
@@ -400,21 +460,29 @@ def phase_production(device):
     return rate
 
 
-def _busy_share(fn):
+def _busy_share(fn, warm: bool = True, attempts: int = 3):
     """(share of the wall time the device is busy, wall seconds) of one
-    traced call: the union of the kernel and copy intervals the profiler
-    records on the card over the host clock around the call."""
+    traced call (after a warm-up call unless ``warm`` is False): the union
+    of the kernel and copy intervals the profiler records on the card over
+    the host clock around the call. A trace without device records is
+    taken again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        start = time.perf_counter()
+    if warm:
         fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
+        if spans:
+            break
+        log(f"[profiler] no device records in trace {attempt}; tracing again")
     check(bool(spans), "the profiler recorded no device activity")
     busy, (lo, hi) = 0.0, spans[0]
     for start_us, end_us in spans[1:]:
@@ -616,6 +684,234 @@ def _conv3d_sat_nwp_macs(model) -> int:
     return macs
 
 
+def _rel_errs(grads, reference):
+    """Per tensor: max |grad − reference| over max |reference|."""
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, reference)]
+
+
+def _train_parity(device):
+    """(a) One train step at batch 4 on the card and on the CPU, both from
+    the seed-0 weights, in full fp32.
+
+    The early conv layers' fp32 gradients are fixed only to ~1e-3 of their
+    largest entry at this width: the CPU's two fp32 implementations (oneDNN
+    and PyTorch's own kernels) differ that much on the same inputs
+    (PERF.md, section 6). So the card's gradients are held to the CPU's within
+    the larger of ``GRAD_REL_TOL`` and ``GRAD_SPREAD_FACTOR`` times that
+    spread, measured in the same run."""
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    config = {k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"}
+    config["batch_size"] = PARITY_BATCH
+    host = FakeDataset(model_configuration(Model(**config)), length=1)[0].numeric()
+    results = []
+    for where in ("cpu", device):
+        trainer = Trainer(device=where, profiler=None)
+        trainer.setup(Model(**config))
+        metrics, grads = trainer.loss_and_grads(host.to(where))
+        if where == "cpu":
+            torch.backends.mkldnn.enabled = False
+            try:
+                _, native = trainer.loss_and_grads(host)
+            finally:
+                torch.backends.mkldnn.enabled = True
+        trainer.apply_gradients(grads)
+        results.append((float(metrics["NMAE"]), [g.cpu() for g in grads],
+                        {k: v.cpu() for k, v in trainer._model.state_dict().items()}))
+        del trainer, grads
+    (cpu_loss, cpu_grads, cpu_params), (card_loss, card_grads, card_params) = results
+    loss_err = abs(card_loss - cpu_loss)
+    grad_errs, spread = _rel_errs(card_grads, cpu_grads), _rel_errs(native, cpu_grads)
+    grad_tol = max(GRAD_REL_TOL, GRAD_SPREAD_FACTOR * max(spread))
+    param_err = max(float((card_params[k] - cpu_params[k]).abs().max()) for k in cpu_params)
+    over = sum(int(((card_params[k] - cpu_params[k]).abs() > 5e-5).sum()) for k in cpu_params)
+    n_params = sum(v.numel() for v in cpu_params.values())
+    above = sum(err > GRAD_REL_TOL for err in grad_errs)
+    log(f"[train] (a) one step at batch {PARITY_BATCH}, card vs CPU: NMAE {card_loss:.7f} vs {cpu_loss:.7f} "
+        f"(|Δ| {loss_err:.3e}, limit {STEP_LOSS_TOL}); gradients max |Δ| / max |g| {max(grad_errs):.3e} "
+        f"({above} of {len(grad_errs)} tensors above {GRAD_REL_TOL}); the CPU's two fp32 implementations "
+        f"differ by {max(spread):.3e} ({sum(e > GRAD_REL_TOL for e in spread)} tensors above {GRAD_REL_TOL}), "
+        f"limit {grad_tol:.3e}; parameters after Adam max |Δ| {param_err:.3e} (limit {STEP_PARAM_TOL}), "
+        f"{over} of {n_params:,} differ by more than 5e-5")
+    check(loss_err <= STEP_LOSS_TOL, "the card's NMAE disagrees with the CPU's")
+    check(max(grad_errs) <= grad_tol, "a card gradient disagrees with the CPU's")
+    check(param_err <= STEP_PARAM_TOL, "the card's Adam step disagrees with the CPU's")
+
+
+def _train_bound_ms(model, batch_size, bandwidth, flops_peak):
+    """The least device time of one train step: forward, data-gradient and
+    weight-gradient products (3 × the forward's FLOPs) at the fp32 rate,
+    plus Adam's 7 × 4 B per parameter (read p, g, m, v; write p, m, v) at
+    the memory rate."""
+    flops = 3 * 2 * _conv3d_sat_nwp_macs(model) * batch_size
+    adam_bytes = 7 * 4 * sum(p.numel() for p in model.parameters())
+    return flops / flops_peak * 1e3 + adam_bytes / bandwidth * 1e3, flops, adam_bytes
+
+
+def _check_train_csvs(log_dir, results_csv, train_steps, val_batches):
+    """metrics.csv: finite per-step train rows and ``*_epoch`` rows; the
+    validation results: val_batches × 32 × 4 rows."""
+    import csv
+    import math
+
+    with open(f"{log_dir}/metrics.csv", newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    steps = [r for r in rows if r.get("NMAE/Train")]
+    check(len(steps) == train_steps, f"{len(steps)} per-step train rows, expected {train_steps}")
+    check(all(math.isfinite(float(r["NMAE/Train"])) for r in steps), "a non-finite train row")
+    for key in ("NMAE/Train_epoch", "MSE/Validation_epoch"):
+        values = [float(r[key]) for r in rows if r.get(key)]
+        check(len(values) == 1 and math.isfinite(values[0]), f"{key}: {values}")
+    with open(results_csv, newline="") as fh:
+        results = list(csv.reader(fh))
+    check(len(results) - 1 == val_batches * 32 * 4, f"{len(results) - 1} validation result rows")
+    return len(rows), len(results) - 1
+
+
+def phase_train(device, bandwidth, flops_peak):
+    """The conv3d_sat_nwp training path at the full width of its YAML."""
+    import copy
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.config.instantiate import instantiate
+    from predict_pv_yield_tpu_torch.data.batch import Batch
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+    from predict_pv_yield_tpu_torch.training.callbacks import EarlyStopping, ModelCheckpoint, load_state
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+    from predict_pv_yield_tpu_torch.training.loggers import CSVLogger
+    from predict_pv_yield_tpu_torch.training.pipeline import train
+
+    blur.launches = 0
+    _train_parity(device)
+
+    config = {k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"}
+    geometry = Model(**config)
+    start = time.perf_counter()
+    dataset = FakeDataset(model_configuration(geometry), length=TRAIN_UNIQUE + VAL_BATCHES)
+    unique = [dataset[i] for i in range(TRAIN_UNIQUE + VAL_BATCHES)]
+    train_batches = unique[:TRAIN_UNIQUE] * (TRAIN_BATCHES // TRAIN_UNIQUE)
+    val_batches = unique[TRAIN_UNIQUE:]
+    log(f"[train] (b) {TRAIN_UNIQUE + VAL_BATCHES} host batches of 32 generated before timing in "
+        f"{time.perf_counter() - start:.2f} s; {TRAIN_BATCHES} train (the {TRAIN_UNIQUE} first, "
+        f"{TRAIN_BATCHES // TRAIN_UNIQUE} times), {VAL_BATCHES} validation")
+
+    # the train step alone: device time and its top kernels
+    profiled = Trainer(device=device, profiler=None)
+    profiled.setup(Model(**config))
+    card_batch = unique[0].numeric().to(device)
+    events = _device_events(lambda: profiled.train_step(card_batch), calls=10)
+    step_ms = sum(e.self_device_time_total for e in events) / 10 / 1e3
+    bound_ms, flops, adam_bytes = _train_bound_ms(profiled._model, 32, bandwidth, flops_peak)
+    log(f"[train] train step device time per batch of 32: {step_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({flops / 1e9:.1f} GFLOP at fp32 + Adam {adam_bytes / 1e9:.3f} GB), "
+        f"{bound_ms / step_ms:.1%} of it")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[train]   {e.self_device_time_total / 10 / 1e3:8.4f} ms  x{e.count // 10:<3d} {e.key[:110]}")
+    # not on the path: the same step with cuDNN held to deterministic
+    # algorithms, what bit-exact resume on the card would cost (ROADMAP M7)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        events = _device_events(lambda: profiled.train_step(card_batch), calls=10)
+    deterministic_ms = sum(e.self_device_time_total for e in events) / 10 / 1e3
+    log(f"[train] the same step with cudnn.deterministic (not the path): {deterministic_ms:.4f} ms; top: "
+        + "; ".join(f"{e.self_device_time_total / 10 / 1e3:.4f} ms x{e.count // 10} {e.key[:60]}"
+                    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:3]))
+    del profiled, card_batch
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # (b) the timed fit; a CUDA event after each train step gives the
+            # device's pace, step by step
+            stopper = EarlyStopping()
+            logger = CSVLogger(save_dir=tmp)
+            trainer = Trainer(max_epochs=1, device=device, logger=logger,
+                              callbacks=[ModelCheckpoint(dirpath=f"{tmp}/ck"), stopper])
+            marks = []
+            step = trainer.train_step
+
+            def marked_step(batch):
+                metrics = step(batch)
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+                return metrics
+
+            trainer.train_step = marked_step
+            trainer.setup(Model(**config))
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            trainer.fit(trainer._model, train_dataloaders=train_batches, val_dataloaders=val_batches)
+            torch.cuda.synchronize()
+            fit_seconds = time.perf_counter() - start
+            check(trainer.global_step == TRAIN_BATCHES and len(marks) == TRAIN_BATCHES, "train steps")
+            gaps = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])][-STEADY_STEPS:]
+            rate = float(np.median([32e3 / gap for gap in gaps]))
+            log(f"[train] fit over {TRAIN_BATCHES}x32 train + {VAL_BATCHES}x32 validation batches (copies, "
+                f"checkpoints and CSVs included): {fit_seconds:.3f} s; steady pace of the last {STEADY_STEPS} steps "
+                f"{np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s")
+            rows, results = _check_train_csvs(logger.log_dir, f"{tmp}/results_epoch_0.csv", TRAIN_BATCHES, VAL_BATCHES)
+            log(f"[train] metrics.csv {rows} rows (finite per-step and *_epoch rows); results_epoch_0.csv "
+                f"{results} rows; {trainer.profiler.summary().splitlines()[1].strip()}")
+
+            # (c) round trip of `last` into a fresh trainer
+            last = f"{tmp}/ck/last"
+            saved = load_state(last)
+            resumed = Trainer(max_epochs=1, device=device, profiler=None, resume_from_checkpoint=last,
+                              callbacks=[ModelCheckpoint(dirpath=f"{tmp}/ck2"), EarlyStopping()])
+            resumed.setup(Model(**config))
+            live, loaded = trainer.state, resumed.state
+            check(all(torch.equal(live["model"][k], loaded["model"][k]) for k in live["model"]), "parameters differ")
+            moments = [(a[key], b[key]) for a, b in zip(live["optimizer"]["state"].values(),
+                                                        loaded["optimizer"]["state"].values())
+                       for key in ("exp_avg", "exp_avg_sq", "step")]
+            check(len(moments) == 3 * len(live["model"]) and all(torch.equal(a, b) for a, b in moments),
+                  "Adam moments or step differ")
+            check(all(torch.equal(saved["model"][k], live["model"][k].cpu()) for k in live["model"]), "state.pt")
+            check((resumed.global_step, resumed.current_epoch) == (trainer.global_step, trainer.current_epoch)
+                  and resumed.callbacks[0].state_dict() == stopper.state_dict(), "loop.json counters")
+            adam_step = int(moments[2][0])
+            batch = Batch.from_host(val_batches[0]).numeric().to(device)
+            losses = [float(t.train_step(batch)["NMAE"]) for t in (trainer, resumed)]
+            check(abs(losses[0] - losses[1]) <= ROUND_TRIP_TOL, f"next-step NMAE {losses}")
+            log(f"[train] (c) `last` round trip: parameters, Adam moments and step ({adam_step}), "
+                f"global_step {resumed.global_step} bit-equal; next step NMAE {losses[0]:.7f} / {losses[1]:.7f}")
+            del trainer, resumed, live, loaded, saved, moments
+
+            # busy share of a traced fit of 8 steps (set-up outside the trace)
+            traced = Trainer(max_epochs=1, device=device, profiler=None)
+            traced.setup(Model(**config))
+            busy, wall = _busy_share(lambda: traced.fit(traced._model, train_dataloaders=train_batches[:8]),
+                                     warm=False)
+            log(f"[train] device busy {busy:.1%} of a traced 8-step fit ({wall * 1e3:.3f} ms)")
+            del traced
+
+            # (d) the pipeline on the literal composed config
+            os.makedirs(f"{tmp}/pipeline")
+            os.chdir(f"{tmp}/pipeline")
+            run_config = copy.deepcopy(TRAIN_CONFIG)
+            datamodule = instantiate(run_config["datamodule"])
+            datamodule.configuration = model_configuration(geometry)  # the model's geometry, set in code
+            start = time.perf_counter()
+            metric = train(run_config, datamodule=datamodule)
+            seconds = time.perf_counter() - start
+            check(metric is not None and np.isfinite(metric), f"optimized_metric {metric}")
+            check(os.path.exists("checkpoints/epoch_000/state.pt") and os.path.exists("checkpoints/last/state.pt"),
+                  "the pipeline wrote no best checkpoint")
+            log(f"[train] (d) train(config) of {' '.join(TRAIN_OVERRIDES)}: {TRAIN_CONFIG['optimized_metric']} "
+                f"{metric:.6f}, best checkpoint checkpoints/epoch_000 written, {seconds:.2f} s")
+        finally:
+            os.chdir(cwd)
+    check(blur.launches == 0, "the train path launched sep_blur")
+    return {"train_step_ms": step_ms, "train_step_deterministic_ms": deterministic_ms,
+            "train_bound_ms": bound_ms, "train_examples_per_s": rate,
+            "train_busy_share": busy, "train_fit_seconds": fit_seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -642,6 +938,7 @@ def main() -> int:
     request_launches, _ = phase_requests(device, loader)
     production_rate = phase_production(device)
     serve = phase_serve(device, bandwidth, flops_peak)
+    trained = phase_train(device, bandwidth, flops_peak)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -661,7 +958,8 @@ def main() -> int:
         "library_ms": headline["library_ms"],
         "call_ms": headline["call_ms"],
     }]
-    log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve}))
+    log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
+                    **trained}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

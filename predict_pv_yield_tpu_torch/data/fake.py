@@ -77,6 +77,27 @@ def fake_batch(configuration, rng: np.random.Generator) -> Batch:
     return Batch.from_host(data)
 
 
+def model_configuration(model, batch_size=None):
+    """A dataset Configuration in the geometry of ``model``: its history and
+    forecast windows, satellite and NWP image sizes and channel counts (the
+    first channels of each list), at ``batch_size`` (the model's own when
+    None)."""
+    from predict_pv_yield_tpu_torch.config.dataset import Configuration
+
+    configuration = Configuration()
+    configuration.process.batch_size = model.batch_size if batch_size is None else batch_size
+    configuration.input_data.default_history_minutes = model.history_minutes
+    configuration.input_data.default_forecast_minutes = model.forecast_minutes
+    configuration.input_data = configuration.input_data.set_all_to_defaults()
+    sat = configuration.input_data.satellite
+    sat.satellite_image_size_pixels = model.image_size_pixels
+    sat.satellite_channels = sat.satellite_channels[: model.number_sat_channels]
+    nwp = configuration.input_data.nwp
+    nwp.nwp_image_size_pixels = model.nwp_image_size_pixels
+    nwp.nwp_channels = nwp.nwp_channels[: model.number_nwp_channels]
+    return configuration
+
+
 class FakeDataset:
     """Map-style dataset of random full batches: construct with
     ``configuration=``, iterate or index, override ``.length``."""

@@ -9,13 +9,18 @@ from __future__ import annotations
 
 from typing import Dict, Type
 
+from predict_pv_yield_tpu_torch.models import baseline as _baseline
 from predict_pv_yield_tpu_torch.models import conv3d_sat_nwp as _conv3d_sat_nwp
 
 MODEL_REGISTRY: Dict[str, Type] = {
+    "last_value": _baseline.Model,
+    "baseline": _baseline.Model,
     "conv3d_sat_nwp": _conv3d_sat_nwp.Model,
 }
 
 MODEL_TARGETS: Dict[str, Type] = {
+    "predict_pv_yield_tpu.models.baseline.Model": _baseline.Model,
+    "predict_pv_yield.models.baseline.last_value.Model": _baseline.Model,
     "predict_pv_yield_tpu.models.conv3d_sat_nwp.Model": _conv3d_sat_nwp.Model,
     "predict_pv_yield.models.conv3d.model_sat_nwp.Model": _conv3d_sat_nwp.Model,
 }

@@ -26,10 +26,9 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from predict_pv_yield_tpu_torch.config.dataset import Configuration
 from predict_pv_yield_tpu_torch.convert import load_lightning_checkpoint
 from predict_pv_yield_tpu_torch.data.batch import Batch
-from predict_pv_yield_tpu_torch.data.fake import FakeDataset
+from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
 from predict_pv_yield_tpu_torch.data.preprocess import preprocess_batch
 from predict_pv_yield_tpu_torch.losses import WeightedLosses, mse_loss, nmae_loss
 from predict_pv_yield_tpu_torch.metrics import mae_each_forecast_horizon, mse_each_forecast_horizon
@@ -75,20 +74,21 @@ def channel_names_of(source) -> Optional[Tuple[str, ...]]:
 _PREFETCH_DEPTH = 2
 
 
-def iter_batches(loader: Iterable, device: torch.device) -> Iterator[Tuple[Batch, Batch]]:
-    """Host batches → ``(host, device)`` pairs, with ``_PREFETCH_DEPTH``
-    batches in flight.
+def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_DEPTH) -> Iterator[Tuple[Batch, Batch]]:
+    """Host batches → ``(host, device)`` pairs, with ``depth`` batches in
+    flight (the trainer passes its ``prefetch_depth``).
 
     On the card each batch's numeric fields are copied into pinned host
     memory and sent with ``non_blocking`` copies on a stream of their own,
-    so the next batch's copy overlaps the current batch's forward; the
-    compute stream waits for a batch's copy only when the batch is yielded.
+    so the next batch's copy overlaps the current batch's step; the compute
+    stream waits for a batch's copy only when the batch is yielded.
     """
+    depth = max(1, int(depth))
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     queue: deque = deque()
     iterator: Optional[Iterator] = iter(loader)
     while True:
-        while iterator is not None and len(queue) < _PREFETCH_DEPTH:
+        while iterator is not None and len(queue) < depth:
             try:
                 host = Batch.from_host(next(iterator))
             except StopIteration:
@@ -135,17 +135,7 @@ def fake_loader(model, n_batches: int) -> FakeDataset:
     """Fake batches (seed 0) shaped to the model's own geometry: its history
     and forecast windows, image sizes and channel counts, at batch
     ``min(model.batch_size, 32)``."""
-    configuration = Configuration()
-    configuration.process.batch_size = min(model.batch_size, 32)
-    configuration.input_data.default_history_minutes = model.history_minutes
-    configuration.input_data.default_forecast_minutes = model.forecast_minutes
-    configuration.input_data = configuration.input_data.set_all_to_defaults()
-    sat = configuration.input_data.satellite
-    sat.satellite_image_size_pixels = model.image_size_pixels
-    sat.satellite_channels = sat.satellite_channels[: model.number_sat_channels]
-    nwp = configuration.input_data.nwp
-    nwp.nwp_image_size_pixels = model.nwp_image_size_pixels
-    nwp.nwp_channels = nwp.nwp_channels[: model.number_nwp_channels]
+    configuration = model_configuration(model, batch_size=min(model.batch_size, 32))
     return FakeDataset(configuration=configuration, length=n_batches, seed=0)
 
 

@@ -191,7 +191,9 @@ def test_seqlens_match(history, forecast):
 
 
 def test_registry_resolves_yaml_targets():
-    assert MODEL_REGISTRY == {"conv3d_sat_nwp": Model}
+    from predict_pv_yield_tpu_torch.models.baseline import Model as Baseline
+
+    assert MODEL_REGISTRY == {"conv3d_sat_nwp": Model, "baseline": Baseline, "last_value": Baseline}
     for name in ("conv3d_sat_nwp", "predict_pv_yield_tpu.models.conv3d_sat_nwp.Model",
                  "predict_pv_yield.models.conv3d.model_sat_nwp.Model"):
         assert get_model(name) is Model

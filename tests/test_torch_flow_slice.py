@@ -266,7 +266,7 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "predict_pv_yield_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
-    forbidden = {"jax", "jaxlib", "flax", "optax", "predict_pv_yield_tpu"}
+    forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "predict_pv_yield_tpu"}
     offenders = [
         (str(path.relative_to(REPO)), module)
         for path in files
