@@ -1,5 +1,5 @@
-"""Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast and
-the conv3d_sat_nwp serve and train paths.
+"""Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast, the
+conv3d_sat_nwp serve and train paths, and the data path that feeds them.
 
     python3 chip_smoke.py
 
@@ -42,12 +42,24 @@ Phases (any failure exits non-zero):
      step and the loop counters bit-equal, the next step's NMAE within
      1e-6; (d) ``train(config)`` on a literal of the composed
      ``experiment=conv3d_sat_nwp`` config (``TRAIN_OVERRIDES``);
-  8. the ``kernels`` line, then the result line.
+  8. data: the same model fed by the port's real loaders. (a) Zarr
+     archives written from a seed at the flagship's widths
+     (``STREAM_*``) streamed by ``ZarrStreamDataModule`` (batch 32,
+     ``num_workers`` 2): the loader alone at 2 and 8 workers, a timed
+     ``Trainer.fit`` of 24 + 4 batches (steady examples/s of the last 16
+     steps) and the busy share of a traced 8-step fit; (b) raw int16 shards
+     (5 % −1 holes) through ``NetCDFDataModule(fake_data=False)``: the
+     train step with the decode inside it (the decode's kernels and share),
+     the fit's steady examples/s and busy share, the bytes sent per batch;
+     (c) the learning gate on the card (``run_learnable``: trained conv3d
+     NMAE < 0.85 × the persistence baseline's); (d) whether h5py,
+     zstandard and fsspec import (information only);
+  9. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
-path (phases 3 and 4) and read just after; the serve and train paths run no
-hand kernel (the JAX package computes them with XLA, outside any Pallas
-kernel), and their phases check that ``sep_blur`` launched 0 times.
+path (phases 3 and 4) and read just after; the serve, train and data paths
+run no hand kernel (the JAX package computes them with XLA, outside any
+Pallas kernel), and their phases check that ``sep_blur`` launched 0 times.
 Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -108,6 +120,19 @@ STEP_LOSS_TOL, GRAD_REL_TOL, STEP_PARAM_TOL = 2e-6, 1e-4, 1e-3  # 1e-3 = 2·lr: 
 GRAD_SPREAD_FACTOR = 3  # card gradients vs CPU: ≤ 3 × the CPU's own fp32 spread (see _train_parity)
 TRAIN_BATCHES, TRAIN_UNIQUE, VAL_BATCHES, STEADY_STEPS = 24, 8, 4, 16
 ROUND_TRIP_TOL = 1e-6
+
+#: phase 8 (a): the zarr archives, at the flagship's widths: 7 days of
+#: 5-minute satellite frames, 11 channels at 64 px (~182 MB of int16, more
+#: than the reader's 64 MiB chunk cache), hourly NWP runs of 10 channels at
+#: 64 px with 30-minute steps to 3 h, a PVLive CSV of 8 GSPs
+STREAM_FRAMES, STREAM_PX, STREAM_CHUNK, STREAM_GSPS = 7 * 288, 64, 12, 8
+STREAM_NWP_STEPS = 7  # 0, 30, ..., 180 minutes
+STREAM_WORKERS = (2, 8)  # the YAML's num_workers, and one per core of the card's host
+LOADER_BATCHES = 16
+#: phase 8 (b): raw int16 shards at the model's geometry
+SHARD_TRAIN, SHARD_VAL, SHARD_EPOCHS, SHARD_WORKERS = 8, 2, 3, 8
+#: phase 8 (c): tests/test_learning_gate.py's margin
+GATE_MARGIN = 0.85
 
 #: the port's ``compose`` of these overrides, as a literal (the card's
 #: machine need not have PyYAML; tests/test_torch_composer.py holds the two
@@ -182,10 +207,14 @@ def device_ms(fn, kernel: str | None = None, calls: int = 50) -> float:
     ``kernel``, only the kernels whose name holds it (one launch per call is
     checked); else every kernel and copy of the call. Host dispatch between
     launches is not counted."""
-    events = _device_events(fn, calls, kernel)
-    if kernel is not None:
-        count = sum(e.count for e in events)
-        check(count == calls, f"profiler saw {count} launches of {kernel}, expected {calls}")
+    for attempt in range(1, 4):
+        events = _device_events(fn, calls, kernel)
+        count = calls if kernel is None else sum(e.count for e in events)
+        if count == calls:
+            break
+        # CUPTI now and then drops a record: trace again
+        log(f"[profiler] trace {attempt} saw {count} launches of {kernel}, expected {calls}; tracing again")
+    check(count == calls, f"profiler saw {count} launches of {kernel}, expected {calls}")
     total_us = sum(e.self_device_time_total for e in events)
     check(total_us > 0, "the profiler recorded no device time")
     return total_us / calls / 1e3
@@ -684,6 +713,30 @@ def _conv3d_sat_nwp_macs(model) -> int:
     return macs
 
 
+def _timed_fit(trainer, **fit_kwargs):
+    """``trainer.fit`` of its set-up model, with a CUDA event recorded after
+    every train step → (wall seconds, train steps, ms between the last
+    ``STEADY_STEPS`` step ends, the median train examples/s of those gaps):
+    the device's pace, step by step."""
+    marks = []
+    step = trainer.train_step
+
+    def marked_step(batch):
+        metrics = step(batch)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return metrics
+
+    trainer.train_step = marked_step
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer.fit(trainer._model, **fit_kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    gaps = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])][-STEADY_STEPS:]
+    return seconds, len(marks), gaps, float(np.median([32e3 / gap for gap in gaps]))
+
+
 def _rel_errs(grads, reference):
     """Per tensor: max |grad − reference| over max |reference|."""
     return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, reference)]
@@ -832,25 +885,10 @@ def phase_train(device, bandwidth, flops_peak):
             logger = CSVLogger(save_dir=tmp)
             trainer = Trainer(max_epochs=1, device=device, logger=logger,
                               callbacks=[ModelCheckpoint(dirpath=f"{tmp}/ck"), stopper])
-            marks = []
-            step = trainer.train_step
-
-            def marked_step(batch):
-                metrics = step(batch)
-                marks.append(torch.cuda.Event(enable_timing=True))
-                marks[-1].record()
-                return metrics
-
-            trainer.train_step = marked_step
             trainer.setup(Model(**config))
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            trainer.fit(trainer._model, train_dataloaders=train_batches, val_dataloaders=val_batches)
-            torch.cuda.synchronize()
-            fit_seconds = time.perf_counter() - start
-            check(trainer.global_step == TRAIN_BATCHES and len(marks) == TRAIN_BATCHES, "train steps")
-            gaps = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])][-STEADY_STEPS:]
-            rate = float(np.median([32e3 / gap for gap in gaps]))
+            fit_seconds, steps, gaps, rate = _timed_fit(trainer, train_dataloaders=train_batches,
+                                                        val_dataloaders=val_batches)
+            check(trainer.global_step == TRAIN_BATCHES and steps == TRAIN_BATCHES, "train steps")
             log(f"[train] fit over {TRAIN_BATCHES}x32 train + {VAL_BATCHES}x32 validation batches (copies, "
                 f"checkpoints and CSVs included): {fit_seconds:.3f} s; steady pace of the last {STEADY_STEPS} steps "
                 f"{np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s")
@@ -912,6 +950,313 @@ def phase_train(device, bandwidth, flops_peak):
             "train_busy_share": busy, "train_fit_seconds": fit_seconds}
 
 
+def _stream_archive(root, seed=0):
+    """Phase 8 (a)'s archives under ``root``, from ``seed``: the satellite
+    and NWP zarr stores (zlib, the port's writer) and the PVLive CSV; every
+    value follows the learnable brightness signal (``data/synthetic.py``).
+    Returns (satellite store, NWP store, CSV)."""
+    import csv
+    import os
+
+    from predict_pv_yield_tpu_torch.consts import SAT_MEAN, SAT_STD, SAT_VARIABLE_NAMES
+    from predict_pv_yield_tpu_torch.data.synthetic import brightness_signal
+    from predict_pv_yield_tpu_torch.data.zarr_reader import write_zarr
+
+    rng = np.random.default_rng(seed)
+    px, n = STREAM_PX, STREAM_FRAMES
+    start = np.datetime64("2020-06-01T04:00", "ns")
+    times = start + np.arange(n) * np.timedelta64(5, "m")
+    yy, xx = np.meshgrid(np.linspace(0, np.pi, px), np.linspace(0, np.pi, px), indexing="ij")
+    gain = (1.0 + 0.2 * np.sin(yy) * np.cos(xx)).astype(np.float32)
+    x, y = np.arange(px) * 2000.0 + 100_000.0, np.arange(px) * 2000.0 + 500_000.0
+
+    channels = [SAT_VARIABLE_NAMES.index(c) for c in CONV3D_SAT_NWP_CHANNELS]
+    level = (2.0 * brightness_signal(np.arange(n) * 5.0) - 1.0).astype(np.float32)
+    counts = np.empty((n, len(channels), px, px), np.int16)
+    for i, c in enumerate(channels):
+        normed = level[:, None, None] * gain + 0.02 * rng.standard_normal((n, px, px), dtype=np.float32)
+        counts[:, i] = np.clip(SAT_MEAN[c] + SAT_STD[c] * normed, 0, 1023).astype(np.int16)
+    sat = os.path.join(root, "satellite.zarr")
+    write_zarr(os.path.join(sat, "time"), times.astype("datetime64[m]").astype(np.int64), chunks=(n,),
+               attrs={"units": "minutes since 1970-01-01T00:00"})
+    write_zarr(os.path.join(sat, "x"), x, chunks=(px,))
+    write_zarr(os.path.join(sat, "y"), y, chunks=(px,))
+
+    hour = np.timedelta64(60, "m")
+    n_init = int((times[-1] + hour - (start - hour)) / hour) + 1
+    inits = start - hour + np.arange(n_init) * hour
+    steps = np.arange(STREAM_NWP_STEPS) * 30
+    valid = (inits[:, None] - start) / np.timedelta64(1, "m") + steps[None, :]
+    scale = 1.0 + 0.1 * np.arange(10, dtype=np.float32)  # one level per channel
+    values = brightness_signal(valid).astype(np.float32)[:, None, :, None, None] * scale[None, :, None, None, None]
+    values = np.round(values * gain * 16) / 16  # (init, variable, step, y, x) on a 1/16 grid
+    nwp = os.path.join(root, "nwp.zarr")
+    write_zarr(os.path.join(sat, "data"), counts, chunks=(STREAM_CHUNK, len(channels), px, px))
+    write_zarr(os.path.join(nwp, "data"), values.astype(np.float32), chunks=(1, 10, STREAM_NWP_STEPS, px, px))
+    write_zarr(os.path.join(nwp, "init_time"), inits.astype("datetime64[m]").astype(np.int64), chunks=(n_init,),
+               attrs={"units": "minutes since 1970-01-01T00:00"})
+    write_zarr(os.path.join(nwp, "step"), steps.astype(np.int64), chunks=(len(steps),), attrs={"units": "minutes"})
+    write_zarr(os.path.join(nwp, "x"), x, chunks=(px,))
+    write_zarr(os.path.join(nwp, "y"), y, chunks=(px,))
+
+    half = np.timedelta64(30, "m")
+    gsp_times = start - half + np.arange(int((times[-1] + 2 * hour - start) / half) + 1) * half
+    level = brightness_signal((gsp_times - start) / np.timedelta64(1, "m"))
+    path = os.path.join(root, "pvlive.csv")
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(["datetime_gmt", "gsp_id", "generation_mw", "capacity_mwp"])
+        for t, v in zip(gsp_times, level):
+            for g in range(STREAM_GSPS):
+                capacity = 100.0 + 40.0 * g
+                writer.writerow([str(t), 101 + g, capacity * v, capacity])
+    return sat, nwp, path, counts.nbytes + values.nbytes
+
+
+def _data_model(device, configuration):
+    """The flagship at full width, ``fc3`` sized for ``configuration``'s
+    yield history, set up on a fresh trainer (outside any timing)."""
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    model = Model(**{k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"})
+    model.match_configuration(configuration)
+    trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None)
+    trainer.setup(model)
+    return trainer
+
+
+def _loader_profile(dataset, top: int = 8):
+    """Where one thread's time goes building the batches of ``dataset``:
+    ``cProfile`` over all of them, the functions with the most own time."""
+    import cProfile
+    import pstats
+
+    profiler = cProfile.Profile()
+    profiler.enable()
+    for i in range(len(dataset)):
+        dataset[i]
+    profiler.disable()
+    stats = pstats.Stats(profiler)
+    examples = len(dataset) * dataset.batch_size
+    log(f"[data] (a) host profile of {len(dataset)} batches on one thread: {stats.total_tt:.3f} s, "
+        f"{stats.total_tt / examples * 1e3:.3f} ms per example; most own time:")
+    rows = sorted(stats.stats.items(), key=lambda item: -item[1][2])[:top]
+    for (filename, line, name), (_, calls, own, cumulative, _) in rows:
+        where = f"{filename.rsplit('/', 1)[-1]}:{line}" if line else filename
+        log(f"[data]   {own / examples * 1e3:8.3f} ms/example own, {cumulative / examples * 1e3:8.3f} cumulative, "
+            f"{calls:6d} calls  {name} ({where})")
+
+
+def _data_stream(device, tmp, cached):
+    """(a) The zarr stream at the flagship's widths."""
+    from predict_pv_yield_tpu_torch.data.loader import ZarrStreamDataModule
+
+    start = time.perf_counter()
+    sat, nwp, csv_path, nbytes = _stream_archive(tmp)
+    log(f"[data] (a) wrote the zarr archives ({STREAM_FRAMES} frames x {len(CONV3D_SAT_NWP_CHANNELS)} channels "
+        f"at {STREAM_PX} px, hourly NWP runs of 10 channels x {STREAM_NWP_STEPS} steps at {STREAM_PX} px; "
+        f"{nbytes / 1e6:.1f} MB before zlib) and the CSV of {STREAM_GSPS} GSPs: "
+        f"{time.perf_counter() - start:.2f} s")
+
+    def datamodule(workers, n_train=TRAIN_BATCHES, n_val=VAL_BATCHES):
+        return ZarrStreamDataModule(
+            zarr_path=sat, nwp_zarr_path=nwp, nwp_image_size_pixels=CONV3D_SAT_NWP.get("nwp_image_size_pixels", 64),
+            gsp_csv=csv_path, n_gsp=1, batch_size=32, history_minutes=CONV3D_SAT_NWP["history_minutes"],
+            forecast_minutes=CONV3D_SAT_NWP["forecast_minutes"],
+            satellite_image_size_pixels=CONV3D_SAT_NWP["image_size_pixels"],
+            n_train_data=n_train, n_val_data=n_val, num_workers=workers)
+
+    loader_rates = {}
+    for workers in STREAM_WORKERS:
+        loader = datamodule(workers, n_train=LOADER_BATCHES).train_dataloader()
+        start = time.perf_counter()
+        batches = list(loader)
+        seconds = time.perf_counter() - start
+        loader_rates[workers] = LOADER_BATCHES * 32 / seconds
+        log(f"[data] (a) loader alone, num_workers {workers}: {LOADER_BATCHES} batches of 32 in {seconds:.3f} s, "
+            f"{LOADER_BATCHES / seconds:.2f} batches/s, {loader_rates[workers]:.2f} examples/s")
+    batch = batches[0]
+    _loader_profile(datamodule(0, n_train=2).train_dataloader().dataset)
+    check(tuple(batch.satellite.data.shape) == (32, 11, 31, 24, 24) and tuple(batch.nwp.data.shape) ==
+          (32, 10, 4, 64, 64) and tuple(batch.gsp.gsp_yield.shape) == (32, 6, 1), "zarr-stream batch shapes")
+    check(all(bool(torch.isfinite(leaf.float()).all()) for leaf in batch.leaves()), "a non-finite streamed field")
+
+    dm = datamodule(STREAM_WORKERS[0])
+    trainer = _data_model(device, dm.configuration)
+    seconds, steps, gaps, rate = _timed_fit(trainer, datamodule=dm)
+    check(steps == TRAIN_BATCHES and trainer.global_step == TRAIN_BATCHES, "zarr-stream fit steps")
+    nmae = trainer.callback_metrics.get("NMAE/Validation_epoch")
+    check(nmae is not None and np.isfinite(nmae), f"zarr-stream validation NMAE {nmae}")
+    log(f"[data] (a) fit from the zarr stream, {TRAIN_BATCHES}x32 train + {VAL_BATCHES}x32 validation batches "
+        f"(num_workers {STREAM_WORKERS[0]}): {seconds:.3f} s; steady pace of the last {STEADY_STEPS} steps "
+        f"{np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s (cached batches, phase 7: "
+        f"{cached['train_step_ms']:.4f} ms of device time per step, {cached['train_examples_per_s']:.2f} examples/s); "
+        f"validation NMAE {nmae:.6f}")
+    del trainer
+
+    traced = _data_model(device, dm.configuration)
+    short = datamodule(STREAM_WORKERS[0], n_train=8, n_val=1)
+    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=short), warm=False)
+    log(f"[data] (a) device busy {busy:.1%} of a traced 8-step fit from the zarr stream ({wall * 1e3:.3f} ms; "
+        f"cached batches, phase 7: {cached['train_busy_share']:.1%})")
+    return {"stream_loader_examples_per_s_2": loader_rates[2], "stream_loader_examples_per_s_8": loader_rates[8],
+            "stream_train_examples_per_s": rate, "stream_busy_share": busy}
+
+
+def _shard_batches(n, seed):
+    """``n`` fake batches at the model's geometry with int16 satellite
+    counts and 5 % −1 holes (the decode's inputs in the serve phase)."""
+    import dataclasses
+
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
+    from predict_pv_yield_tpu_torch.data.preprocess import channel_stats
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+
+    configuration = model_configuration(Model(**{k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"}))
+    mean, std = channel_stats(CONV3D_SAT_NWP_CHANNELS)
+    shape = (1, -1, 1, 1, 1)
+    generator = torch.Generator().manual_seed(seed)
+    for batch in FakeDataset(configuration, length=n, seed=seed):
+        sat = batch.satellite.data
+        counts = torch.round(sat * std.view(shape) + mean.view(shape)).clamp(0, 1023).to(torch.int16)
+        counts[torch.rand(counts.shape, generator=generator) < 0.05] = -1
+        yield configuration, batch, batch.replace(satellite=dataclasses.replace(batch.satellite, data=counts))
+
+
+def _yaml_configuration(configuration) -> str:
+    """A dataset configuration as ``configuration.yaml`` text (JSON is YAML)."""
+    input_data = configuration.input_data
+    return json.dumps({
+        "general": {"name": "chip_smoke", "description": "raw int16 shards at the flagship's geometry"},
+        "process": {"batch_size": configuration.process.batch_size},
+        "input_data": {
+            "default_history_minutes": input_data.default_history_minutes,
+            "default_forecast_minutes": input_data.default_forecast_minutes,
+            "satellite": {"satellite_channels": list(input_data.satellite.satellite_channels),
+                          "satellite_image_size_pixels": input_data.satellite.satellite_image_size_pixels},
+            "nwp": {"nwp_channels": list(input_data.nwp.nwp_channels),
+                    "nwp_image_size_pixels": input_data.nwp.nwp_image_size_pixels},
+        },
+    }, indent=1)
+
+
+def _data_shards(device, tmp, cached):
+    """(b) Raw int16 shards at the model's geometry: the decode inside the
+    step, the fit from the shard datamodule, the bytes sent per batch."""
+    import os
+
+    from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule
+    from predict_pv_yield_tpu_torch.data.preprocess import preprocess_batch
+    from predict_pv_yield_tpu_torch.data.shards import write_shard
+
+    root = os.path.join(tmp, "prepared")
+    start = time.perf_counter()
+    for i, (configuration, float_batch, raw_batch) in enumerate(_shard_batches(SHARD_TRAIN + SHARD_VAL, seed=5)):
+        split, index = ("train", i) if i < SHARD_TRAIN else ("test", i - SHARD_TRAIN)
+        write_shard(os.path.join(root, split), index, raw_batch, fmt="raw")
+    with open(os.path.join(root, "configuration.yaml"), "w") as fh:
+        fh.write(_yaml_configuration(configuration))
+    shard_mb = os.path.getsize(os.path.join(root, "train", "000000.shard")) / 1e6
+    log(f"[data] (b) wrote {SHARD_TRAIN} + {SHARD_VAL} raw shards ({shard_mb:.1f} MB each): "
+        f"{time.perf_counter() - start:.2f} s")
+    sent = [sum(leaf.numel() * leaf.element_size() for leaf in b.numeric().leaves()) for b in (raw_batch, float_batch)]
+    log(f"[data] (b) host->device bytes per batch: {sent[0] / 1e6:.3f} MB with int16 satellite counts, "
+        f"{sent[1] / 1e6:.3f} MB with float32 (phase 7), {1 - sent[0] / sent[1]:.1%} less")
+
+    dm = NetCDFDataModule(data_path=root, fake_data=False, num_workers=SHARD_WORKERS,
+                          n_train_data=SHARD_TRAIN, n_val_data=SHARD_VAL)
+    check(tuple(dm.configuration.input_data.satellite.satellite_channels) == CONV3D_SAT_NWP_CHANNELS,
+          "the shards' configuration.yaml")
+    first = next(iter(dm.val_dataloader()))
+    check(first.satellite.data.dtype == torch.int16 and int((first.satellite.data == -1).sum()) > 0, "int16 shards")
+
+    # the train step on an int16 batch: the decode runs inside it
+    trainer = _data_model(device, dm.configuration)
+    card = first.numeric().to(device)
+    events = _device_events(lambda: trainer.train_step(card), calls=10)
+    step_ms = sum(e.self_device_time_total for e in events) / 10 / 1e3
+    decode = _device_events(lambda: preprocess_batch(card, CONV3D_SAT_NWP_CHANNELS), calls=10)
+    # each decode kernel launches once per call; the mean launch counts even
+    # where CUPTI dropped a record
+    decode_ms = sum(e.self_device_time_total / e.count for e in decode if e.count) / 1e3
+    check(not preprocess_batch(card, CONV3D_SAT_NWP_CHANNELS).satellite.data.isnan().any(), "decode NaN")
+    log(f"[data] (b) train step on an int16 batch of 32 (decode inside): {step_ms:.4f} ms of device time "
+        f"(float32 batches, phase 7: {cached['train_step_ms']:.4f} ms); the decode alone {decode_ms:.4f} ms, "
+        f"{decode_ms / step_ms:.2%} of the step:")
+    for e in sorted(decode, key=lambda e: -e.self_device_time_total):
+        log(f"[data]   {e.self_device_time_total / max(e.count, 1) / 1e3:8.4f} ms per launch, {e.count} launches "
+            f"in 10 calls  {e.key[:100]}")
+    del trainer, card
+
+    trainer = _data_model(device, dm.configuration)
+    trainer.max_epochs = SHARD_EPOCHS
+    seconds, steps, gaps, rate = _timed_fit(trainer, datamodule=dm)
+    check(steps == SHARD_TRAIN * SHARD_EPOCHS, "shard fit steps")
+    log(f"[data] (b) fit from raw shards, {SHARD_EPOCHS} epochs of {SHARD_TRAIN}x32 train + {SHARD_VAL}x32 "
+        f"validation batches (num_workers {SHARD_WORKERS}): {seconds:.3f} s; steady pace of the last {STEADY_STEPS} "
+        f"steps {np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s (phase 7: "
+        f"{cached['train_examples_per_s']:.2f})")
+    del trainer
+    traced = _data_model(device, dm.configuration)
+    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=dm), warm=False)
+    log(f"[data] (b) device busy {busy:.1%} of a traced {SHARD_TRAIN}-step fit from raw shards "
+        f"({wall * 1e3:.3f} ms; phase 7: {cached['train_busy_share']:.1%})")
+    return {"shard_train_step_ms": step_ms, "shard_decode_ms": decode_ms, "shard_decode_share": decode_ms / step_ms,
+            "shard_train_examples_per_s": rate, "shard_busy_share": busy, "shard_bytes_per_batch": sent[0],
+            "float_bytes_per_batch": sent[1]}
+
+
+def _data_gate(tmp):
+    """(c) The learning gate on the card: conv3d_sat_nwp trained through
+    ``compose`` → ``train`` beats the persistence baseline."""
+    import contextlib
+    import io
+    import os
+
+    from predict_pv_yield_tpu_torch.data import synthetic
+
+    start = time.perf_counter()
+    archive = synthetic.make_learnable_archive(os.path.join(tmp, "learnable"), n_frames=288, px=24, n_gsp=4,
+                                               seed=0, with_nwp=True)
+    results = {}
+    for name, overrides in (("trained", synthetic.CONV3D_GATE_OVERRIDES + ["trainer.max_epochs=4"]),
+                            ("baseline", synthetic.BASELINE_GATE_OVERRIDES)):
+        workdir = os.path.join(tmp, f"gate_{name}")
+        os.makedirs(workdir)
+        with contextlib.redirect_stdout(io.StringIO()):  # the config tree and the profiler summary
+            results[name] = synthetic.run_learnable(archive, overrides, workdir=workdir)
+    trained, baseline = results["trained"], results["baseline"]
+    log(f"[data] (c) learning gate on the card: trained conv3d_sat_nwp {synthetic.GATE_METRIC} {trained:.6f}, "
+        f"persistence baseline {baseline:.6f}, ratio {trained / baseline:.4f} (limit {GATE_MARGIN}); "
+        f"{time.perf_counter() - start:.2f} s")
+    check(trained < GATE_MARGIN * baseline, "the trained model does not beat persistence")
+    return {"trained_nmae": trained, "baseline_nmae": baseline}
+
+
+def phase_data(device, cached):
+    """Phase 8: the flagship fed by the port's zarr-stream and shard
+    loaders, the learning gate, and a package probe."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    blur.launches = 0
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = {**_data_stream(device, tmp, cached), **_data_shards(device, tmp, cached), **_data_gate(tmp)}
+    probe = {name: importlib.util.find_spec(name) is not None for name in ("h5py", "zstandard", "fsspec")}
+    log("[data] (d) packages on this machine: " + ", ".join(
+        f"{name} {'imports' if found else 'missing'}" for name, found in probe.items()))
+    log(f"[data] (d) host cores: os.cpu_count() {os.cpu_count()}, usable by this process "
+        f"{len(os.sched_getaffinity(0))}")
+    check(blur.launches == 0, "the data path launched sep_blur")
+    log(f"[data] phase 8: {time.perf_counter() - start:.2f} s")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -939,6 +1284,7 @@ def main() -> int:
     production_rate = phase_production(device)
     serve = phase_serve(device, bandwidth, flops_peak)
     trained = phase_train(device, bandwidth, flops_peak)
+    data = phase_data(device, trained)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -959,7 +1305,7 @@ def main() -> int:
         "call_ms": headline["call_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
-                    **trained}))
+                    **trained, **data}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

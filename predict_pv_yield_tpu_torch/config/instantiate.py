@@ -15,7 +15,7 @@ import inspect
 import logging
 from typing import Any, Callable, Dict
 
-from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule
+from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule, ZarrStreamDataModule
 from predict_pv_yield_tpu_torch.models import MODEL_TARGETS
 from predict_pv_yield_tpu_torch.training.callbacks import EarlyStopping, ModelCheckpoint
 from predict_pv_yield_tpu_torch.training.engine import Trainer
@@ -27,6 +27,7 @@ TARGET_ALIASES: Dict[str, Callable] = {
     "predict_pv_yield_tpu.data.loader.NetCDFDataModule": NetCDFDataModule,
     "predict_pv_yield.data.dataloader.NetCDFDataModule": NetCDFDataModule,
     "nowcasting_dataloader.datamodules.NetCDFDataModule": NetCDFDataModule,
+    "predict_pv_yield_tpu.data.loader.ZarrStreamDataModule": ZarrStreamDataModule,
     "predict_pv_yield_tpu.training.engine.Trainer": Trainer,
     "pytorch_lightning.Trainer": Trainer,
     "predict_pv_yield_tpu.training.callbacks.ModelCheckpoint": ModelCheckpoint,
@@ -57,7 +58,6 @@ NOT_PORTED: Dict[str, str] = {
     "predict_pv_yield.models.perceiver.perceiver_conv3d_nwp_sat.Model": _PERCEIVERS,
     "predict_pv_yield_tpu.models.experimental.CNNConcatTimesteps": _EXPERIMENTS,
     "predict_pv_yield_tpu.models.experimental.CNNRNN": _EXPERIMENTS,
-    "predict_pv_yield_tpu.data.loader.ZarrStreamDataModule": "M8/M9: the zarr-stream datamodule",
     "predict_pv_yield_tpu.training.loggers.TensorBoardLogger": _SAAS,
     "pytorch_lightning.loggers.tensorboard.TensorBoardLogger": _SAAS,
     "predict_pv_yield_tpu.training.loggers.WandbLogger": _SAAS,

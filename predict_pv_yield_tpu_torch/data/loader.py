@@ -1,12 +1,12 @@
-"""Data module: whole-batch datasets → host prefetch (a port of the JAX
-package's ``data/loader.py``: ``PrefetchingLoader``, the fake-data branch of
-``NetCDFDataModule`` and ``get_dataloaders``).
+"""Data modules: whole-batch datasets → host prefetch (a port of the JAX
+package's ``data/loader.py``: ``PrefetchingLoader``, ``NetCDFDataModule``
+over fake data or prepared shards, ``ZarrStreamDataModule`` and
+``get_dataloaders``).
 
-The dataset yields whole batches, as the reference's
+The dataset yields whole batches of CPU tensors, as the reference's
 ``DataLoader(batch_size=None)`` does. The host → device copy is the
 trainer's (``predict.iter_batches``: pinned buffers, a copy stream). The
-prepared-shard and NetCDF readers are not ported yet (ROADMAP M9/M16), nor
-is the zarr-stream datamodule (M8/M9).
+NetCDF reader is not ported yet (ROADMAP M16b), nor are remote paths (M9).
 """
 
 from __future__ import annotations
@@ -15,12 +15,25 @@ import logging
 import os
 import queue
 import threading
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from predict_pv_yield_tpu_torch.config.dataset import Configuration, load_yaml_configuration
 from predict_pv_yield_tpu_torch.data.fake import FakeDataset
+from predict_pv_yield_tpu_torch.data.netcdf_reader import _V15_SOURCES
+from predict_pv_yield_tpu_torch.data.shards import ShardDataset
+from predict_pv_yield_tpu_torch.data.sources import (
+    GSPSource,
+    PVDataSource,
+    SampledBatchDataset,
+    SampleGenerator,
+    SunSource,
+    open_zarr_nwp,
+    open_zarr_satellite,
+    open_zarr_topographic,
+)
+from predict_pv_yield_tpu_torch.seqlen import SeqLens
 
 _LOG = logging.getLogger(__name__)
 
@@ -121,11 +134,14 @@ class PrefetchingLoader:
 
 
 class NetCDFDataModule:
-    """Train/val/test loaders over fake batches shaped by the dataset's
-    ``configuration.yaml`` (the default Configuration when ``data_path``
-    has none). Constructor-compatible with the JAX package's datamodule;
-    ``fake_data=False`` (prepared shards or NetCDF files) is ROADMAP M9/M16.
-    ``configuration`` may be replaced before the first loader is built.
+    """Train/val/test loaders over prepared batch shards (``train/`` and
+    ``test/`` under ``data_path``, ``data/shards.py``) or fake batches
+    shaped by the dataset's ``configuration.yaml``. Constructor-compatible
+    with the JAX package's datamodule. A NetCDF dataset directory raises
+    (ROADMAP M16b), as does a remote ``data_path`` (M9); without
+    ``configuration.yaml`` fake data takes the default Configuration and
+    shards raise. ``configuration`` may be replaced before the first loader
+    is built.
     """
 
     def __init__(
@@ -140,11 +156,6 @@ class NetCDFDataModule:
         fake_data: bool = False,
         shuffle_train: bool = True,
     ):
-        if not fake_data:
-            raise NotImplementedError(
-                "NetCDFDataModule(fake_data=False): the prepared-shard and NetCDF readers are not "
-                "ported yet (ROADMAP M9 loader, M16 readers); set datamodule.fake_data=true"
-            )
         if "://" in data_path:
             raise NotImplementedError(f"remote data_path {data_path!r} (fsspec) is not ported yet (ROADMAP M9)")
         self.temp_path = temp_path
@@ -160,23 +171,224 @@ class NetCDFDataModule:
         filename = os.path.join(data_path, "configuration.yaml")
         if os.path.exists(filename):
             self.configuration = load_yaml_configuration(filename)
-        else:
+        elif fake_data:
             _LOG.warning("%s not found; using default Configuration for fake data", filename)
             self.configuration = Configuration()
             self.configuration.input_data = self.configuration.input_data.set_all_to_defaults()
+        else:
+            raise FileNotFoundError(filename)
 
-    def _loader(self, n_batches: int, shuffle: bool) -> PrefetchingLoader:
-        dataset = FakeDataset(configuration=self.configuration, length=n_batches)
-        return PrefetchingLoader(dataset, num_workers=0, prefetch_factor=8, shuffle=shuffle)
+    def _dataset(self, n_batches: int, split: str):
+        if self.fake_data:
+            return FakeDataset(configuration=self.configuration, length=n_batches)
+        src_path = os.path.join(self.data_path, split)
+        if self._is_netcdf(src_path):
+            raise NotImplementedError(
+                f"{src_path} holds NetCDF batch files; the NetCDF/HDF5 reader is not ported yet "
+                "(ROADMAP M16b); prepare .npz or raw shards (data/shards.py write_shard)"
+            )
+        return ShardDataset(n_batches=n_batches, src_path=src_path)
+
+    @staticmethod
+    def _is_netcdf(src_path: str) -> bool:
+        """Whether ``src_path`` holds one of the reference's NetCDF layouts:
+        v15 per-source directories or flat ``.nc`` files."""
+        if not os.path.isdir(src_path):
+            return False
+        if any(os.path.isdir(os.path.join(src_path, s)) for s in _V15_SOURCES):
+            return True
+        try:
+            return any(name.endswith(".nc") for name in os.listdir(src_path))
+        except OSError:
+            return False
+
+    def _loader(self, dataset, shuffle: bool) -> PrefetchingLoader:
+        return PrefetchingLoader(
+            dataset,
+            num_workers=0 if self.fake_data else self.num_workers,
+            prefetch_factor=8,
+            shuffle=shuffle,
+        )
 
     def train_dataloader(self) -> PrefetchingLoader:
-        return self._loader(self.n_train_data, self.shuffle_train)
+        return self._loader(self._dataset(self.n_train_data, "train"), self.shuffle_train)
 
     def val_dataloader(self) -> PrefetchingLoader:
-        return self._loader(self.n_val_data, False)
+        return self._loader(self._dataset(self.n_val_data, "test"), False)
 
     def test_dataloader(self) -> PrefetchingLoader:
-        return self._loader(self.n_val_data, False)
+        return self._loader(self._dataset(self.n_val_data, "test"), False)
+
+
+class ZarrStreamDataModule:
+    """Train/val/test loaders sampling LIVE from a zarr satellite archive.
+
+    No prepare step: each batch draws random example windows straight from
+    the archive through the nb28 DataSource pipeline (``data/sources.py``) —
+    the native analog of experiment 001's ``NowcastingDataModule`` streaming
+    from zarr (reference ``experiments/001…py:66-89``). Satellite windows,
+    computed solar angles, (with ``gsp_csv``) real 30-minute GSP targets and
+    (with ``nwp_zarr_path``) real NWP grids — freshest-run-per-target
+    selection, centre-cropped — are real; groups no source covers keep
+    deterministic synthetic filler so every model's input contract holds.
+    The archive's time-axis tail (``test_fraction``) is held out for
+    val/test — train and test windows never overlap. Batch ``i`` of a split
+    is the JAX package's batch ``i``, value for value.
+    """
+
+    def __init__(
+        self,
+        zarr_path: str,
+        zarr_array: str = "data",
+        zarr_time: str = "time",
+        nwp_zarr_path: Optional[str] = None,
+        nwp_zarr_array: str = "data",
+        nwp_init_time: str = "init_time",
+        nwp_step: str = "step",
+        nwp_dims: str = "init_time,variable,step,y,x",
+        nwp_image_size_pixels: int = 16,
+        hrv_zarr_path: Optional[str] = None,
+        hrv_zarr_array: str = "data",
+        hrv_zarr_time: str = "time",
+        hrv_image_size_pixels: int = 64,
+        topo_zarr_path: Optional[str] = None,
+        topo_image_size_pixels: int = 64,
+        pv_csv: Optional[str] = None,
+        pv_metadata_csv: Optional[str] = None,
+        gsp_csv: Optional[str] = None,
+        n_gsp: int = 1,
+        batch_size: int = 32,
+        history_minutes: int = 30,
+        forecast_minutes: int = 60,
+        satellite_image_size_pixels: int = 24,
+        n_train_data: int = 64,
+        n_val_data: int = 8,
+        test_fraction: float = 0.2,
+        num_workers: int = 2,
+        seed: int = 0,
+    ):
+        self.batch_size = batch_size
+        self.n_train_data = n_train_data
+        self.n_val_data = n_val_data
+        self.num_workers = num_workers
+        self.seed = seed
+
+        sat = open_zarr_satellite(
+            zarr_path, zarr_array, zarr_time,
+            image_size_pixels=satellite_image_size_pixels,
+        )
+        sources = [sat]
+        nwp_source = None
+        if nwp_zarr_path:
+            nwp_source = open_zarr_nwp(
+                nwp_zarr_path,
+                array=nwp_zarr_array,
+                init_time=nwp_init_time,
+                step=nwp_step,
+                dims=tuple(nwp_dims.split(",")),
+                image_size_pixels=nwp_image_size_pixels,
+                n_targets=SeqLens(history_minutes, forecast_minutes).seq_len_60,
+            )
+            sources.append(nwp_source)
+        if hrv_zarr_path:
+            sources.append(
+                open_zarr_satellite(
+                    hrv_zarr_path, hrv_zarr_array, hrv_zarr_time,
+                    image_size_pixels=hrv_image_size_pixels, key_prefix="hrv",
+                )
+            )
+        if topo_zarr_path:
+            sources.append(open_zarr_topographic(topo_zarr_path, image_size_pixels=topo_image_size_pixels))
+        locations = None
+        if pv_csv:
+            if not pv_metadata_csv:
+                raise ValueError("pv_csv requires pv_metadata_csv")
+            pv_source = PVDataSource.from_passiv_csv(pv_csv, pv_metadata_csv)
+            sources.append(pv_source)
+            if pv_source.x is not None and pv_source.y is not None:
+                # location-driven extraction: one PV system's OSGB location
+                # per example drives every modality's crop
+                locations = np.stack([pv_source.x, pv_source.y], axis=1)
+        if sat.x is not None and sat.y is not None:
+            sources.append(SunSource(float(np.median(sat.x)), float(np.median(sat.y))))
+        if gsp_csv:
+            sources.append(GSPSource.from_pvlive_csv(gsp_csv, n_gsp_per_example=n_gsp))
+        self._locations = locations
+
+        configuration = Configuration()
+        configuration.process.batch_size = batch_size
+        configuration.input_data.default_history_minutes = history_minutes
+        configuration.input_data.default_forecast_minutes = forecast_minutes
+        configuration.input_data = configuration.input_data.set_all_to_defaults()
+        configuration.input_data.satellite.satellite_image_size_pixels = satellite_image_size_pixels
+        n_ch = 1 if len(sat.data.shape) == 3 else sat.data.shape[1]
+        channels = list(configuration.input_data.satellite.satellite_channels)
+        if n_ch > len(channels):
+            raise ValueError(f"archive has {n_ch} channels > the {len(channels)} named satellite channels")
+        configuration.input_data.satellite.satellite_channels = channels[:n_ch]
+        if hrv_zarr_path:
+            configuration.input_data.hrvsatellite.hrvsatellite_image_size_pixels = hrv_image_size_pixels
+        if topo_zarr_path:
+            configuration.input_data.topographic.topographic_image_size_pixels = topo_image_size_pixels
+        if pv_csv:
+            configuration.input_data.pv.n_pv_systems_per_example = 1
+        if nwp_zarr_path:
+            configuration.input_data.nwp.nwp_image_size_pixels = nwp_image_size_pixels
+            n_nwp_ch = nwp_source.data.shape[2]  # canonical axis 2 = channel
+            nwp_channels = list(configuration.input_data.nwp.nwp_channels)
+            if n_nwp_ch > len(nwp_channels):
+                raise ValueError(
+                    f"NWP archive has {n_nwp_ch} channels > the {len(nwp_channels)} named NWP channels"
+                )
+            configuration.input_data.nwp.nwp_channels = nwp_channels[:n_nwp_ch]
+        if gsp_csv:
+            configuration.input_data.gsp.n_gsp_per_example = n_gsp
+        self.configuration = configuration
+
+        cut = int(len(sat.datetimes) * (1.0 - test_fraction))
+        # built lazily per split: test_fraction=0 (train on the whole
+        # archive) must not fail at construction for want of a test split
+        self._split_times = {"train": sat.datetimes[:cut], "test": sat.datetimes[cut:]}
+        self._sources = sources
+        self._history_minutes = history_minutes
+        self._forecast_minutes = forecast_minutes
+        self._generators: dict = {}
+
+    def _generator(self, split: str) -> SampleGenerator:
+        if split not in self._generators:
+            try:
+                self._generators[split] = SampleGenerator(
+                    self._sources,
+                    datetimes=self._split_times[split],
+                    history_minutes=self._history_minutes,
+                    forecast_minutes=self._forecast_minutes,
+                    locations=self._locations,
+                )
+            except ValueError as exc:
+                raise ValueError(
+                    f"the {split} split of the archive cannot seed a sample generator ({exc}); "
+                    "adjust test_fraction"
+                ) from exc
+        return self._generators[split]
+
+    def _loader(self, split: str, n_batches: int, shuffle: bool) -> PrefetchingLoader:
+        dataset = SampledBatchDataset(
+            self._generator(split),
+            batch_size=self.batch_size,
+            length=n_batches,
+            configuration=self.configuration,
+            seed=2 * self.seed + (split == "test"),
+        )
+        return PrefetchingLoader(dataset, num_workers=self.num_workers, prefetch_factor=4, shuffle=shuffle)
+
+    def train_dataloader(self) -> PrefetchingLoader:
+        return self._loader("train", self.n_train_data, True)
+
+    def val_dataloader(self) -> PrefetchingLoader:
+        return self._loader("test", self.n_val_data, False)
+
+    def test_dataloader(self) -> PrefetchingLoader:
+        return self._loader("test", self.n_val_data, False)
 
 
 def get_dataloaders(
@@ -187,7 +399,7 @@ def get_dataloaders(
     data_path: str = "prepared_ML_training_data/v4/",
 ) -> Tuple[PrefetchingLoader, PrefetchingLoader]:
     """The train and validation loaders of a :class:`NetCDFDataModule` over
-    prepared data (ROADMAP M9/M16: raises until those land)."""
+    prepared shards under ``data_path``."""
     data_module = NetCDFDataModule(
         temp_path=temp_path,
         data_path=data_path,

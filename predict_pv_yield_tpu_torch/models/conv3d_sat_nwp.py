@@ -84,27 +84,51 @@ class Model(BaseModel):
         self.include_future_satellite = include_future_satellite
 
         n, ch = number_of_conv3d_layers, conv3d_channels
+        #: yield series (GSPs or PV systems per example) in the history
+        #: input; the reference's width until ``match_configuration``
+        self.yield_history_series = self.number_of_samples_per_batch
         add_conv3d_tower(self, "sat_conv", number_sat_channels, ch, n, pad_time=True)
         self.fc1 = nn.Linear(self.cnn_output_size, fc1_output_features)
         self.fc2 = nn.Linear(fc1_output_features, fc2_output_features)
-        fc3_in = fc2_output_features
-        if include_pv_or_gsp_yield_history:
-            fc3_in += self.number_of_samples_per_batch * (self.history_len_30 + 1)
         if include_pv_yield_history:
             self.pv_fc1 = nn.Linear(128 * (self.history_len_5 + 1), 128)
-            fc3_in += 128
         if include_nwp:
             add_conv3d_tower(self, "nwp_conv", number_nwp_channels, ch, n, pad_time=True)
             self.nwp_fc1 = nn.Linear(self.nwp_cnn_output_size, fc1_output_features)
             self.nwp_fc2 = nn.Linear(fc1_output_features, 128)
-            fc3_in += 128
         if embedding_dem:
             self.pv_system_id_embedding = nn.Embedding(N_PV_SYSTEM_IDS, embedding_dem)
-            fc3_in += embedding_dem
-        self.fc3 = nn.Linear(fc3_in, fc3_output_features)
+        self.fc3 = nn.Linear(self.fc3_in_features, fc3_output_features)
         self.fc4 = nn.Linear(fc3_output_features, self.forecast_len)
         if generator is not None:
             init_parameters(self, generator)
+
+    @property
+    def fc3_in_features(self) -> int:
+        """fc2's output, the yield history, the PV and NWP branches and the
+        id embedding, concatenated."""
+        width = self.fc2_output_features
+        if self.include_pv_or_gsp_yield_history:
+            width += self.yield_history_series * (self.history_len_30 + 1)
+        if self.include_pv_yield_history:
+            width += 128
+        if self.include_nwp:
+            width += 128
+        return width + (self.embedding_dem or 0)
+
+    def match_configuration(self, configuration) -> None:
+        """Size ``fc3`` for the yield history that batches of the dataset
+        ``configuration`` carry (its GSPs or PV systems per example) in place
+        of the reference's fixed ``number_of_samples_per_batch``, as the JAX
+        model takes that width from its first batch. The trainer calls this
+        before it draws the parameters; a changed ``fc3`` is a new layer."""
+        input_data = configuration.input_data
+        series = (input_data.gsp.n_gsp_per_example if self.output_variable == "gsp_yield"
+                  else input_data.pv.n_pv_systems_per_example)
+        if not self.include_pv_or_gsp_yield_history or series == self.yield_history_series:
+            return
+        self.yield_history_series = series
+        self.fc3 = nn.Linear(self.fc3_in_features, self.fc3_output_features)
 
     @property
     def sat_time_steps(self) -> int:

@@ -19,8 +19,12 @@ import logging
 import os
 import sys
 
-#: datamodule keys that name filesystem paths
-_PATH_KEYS = ("data_path", "temp_path")
+#: datamodule keys that name filesystem paths (the zarr-stream archives and
+#: CSVs among them)
+_PATH_KEYS = (
+    "data_path", "temp_path", "zarr_path", "nwp_zarr_path", "hrv_zarr_path", "topo_zarr_path",
+    "pv_csv", "pv_metadata_csv", "gsp_csv",
+)
 
 
 def load_dotenv(path: str = ".env") -> None:

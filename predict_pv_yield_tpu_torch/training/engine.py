@@ -249,6 +249,8 @@ class Trainer:
         self._plots_noted = False
         #: satellite channels of the dataset configuration (decode stats)
         self._satellite_channels = None
+        #: the dataset configuration the loaders came with, if any
+        self._configuration = None
 
     # ------------------------------------------------------------------
     @property
@@ -288,11 +290,13 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _adopt_configuration(self, source) -> None:
-        """Take the satellite channel list of ``source``'s dataset
-        configuration (a datamodule, dataset or loader) for the decode."""
+        """Take the dataset configuration of ``source`` (a datamodule,
+        dataset or loader): its satellite channels for the decode, its
+        geometry for the model's input widths (``setup``)."""
         channels = channel_names_of(source)
         if channels is not None:
             self._satellite_channels = channels
+            self._configuration = source.configuration
 
     def _resolve_loaders(self, datamodule, train_loader, val_loader):
         if datamodule is not None:
@@ -304,9 +308,13 @@ class Trainer:
         return train_loader, val_loader
 
     def setup(self, model) -> None:
-        """Draw the parameters from the trainer's seed, move the model to the
-        device, build Adam, and restore ``resume_from_checkpoint``."""
+        """Shape the model's input widths to the loaders' dataset
+        configuration, draw the parameters from the trainer's seed, move the
+        model to the device, build Adam, and restore
+        ``resume_from_checkpoint``."""
         model = model.to("cpu")
+        if self._configuration is not None and hasattr(model, "match_configuration"):
+            model.match_configuration(self._configuration)
         init_parameters(model, torch.Generator().manual_seed(self.seed))
         model = model.to(self.device)
         self._model = model

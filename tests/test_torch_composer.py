@@ -106,8 +106,8 @@ def test_instantiate_builds_port_objects(tmp_cwd):
     (["model=perceiver_conv3d_sat_nwp"], ("model",), "M11"),
     (["model=cnn_rnn"], ("model",), "M12"),
     (["model=cnn_concat_timesteps"], ("model",), "M12"),
-    (["datamodule=zarr_stream"], ("datamodule",), "M8/M9"),
-    ([], ("datamodule",), "M9"),
+    (["datamodule=zarr_stream", "datamodule.zarr_path=gs://bucket/satellite.zarr"], ("datamodule",), "M9"),
+    (["datamodule.data_path=gs://bucket/v15"], ("datamodule",), "M9"),
     (["logger=tensorboard"], ("logger", "tensorboard"), "T7"),
     (["logger=wandb"], ("logger", "wandb"), "T7"),
     (["logger=many_loggers"], ("logger", "tensorboard"), "T7"),

@@ -276,6 +276,51 @@ def test_port_imports_nothing_of_jax():
     assert not offenders, offenders
 
 
+#: packages no port module imports at module level (the card's machine need
+#: not have them); pandas only inside these functions, where the JAX package
+#: uses it to pivot CSVs
+OPTIONAL_PACKAGES = {"pandas", "yaml", "h5py", "fsspec", "zstandard"}
+PANDAS_FUNCTIONS = {
+    ("predict_pv_yield_tpu_torch/data/sources.py", "from_passiv_csv"),
+    ("predict_pv_yield_tpu_torch/data/sources.py", "from_pvlive_csv"),
+    ("predict_pv_yield_tpu_torch/data/synthetic.py", "make_learnable_archive"),
+}
+
+
+def _imports_by_scope(path):
+    """(enclosing function name or None, module) for every import."""
+    found = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                found.extend((scope, alias.name) for alias in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module and child.level == 0:
+                found.append((scope, child.module))
+            visit(child, scope)
+
+    visit(ast.parse(path.read_text(), filename=str(path)), None)
+    return found
+
+
+def test_port_imports_optional_packages_only_inside_functions():
+    files = sorted((REPO / "predict_pv_yield_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    module_level, pandas_users = [], set()
+    for path in files:
+        name = str(path.relative_to(REPO))
+        for scope, module in _imports_by_scope(path):
+            root = module.split(".")[0]
+            if root in OPTIONAL_PACKAGES and scope is None:
+                module_level.append((name, module))
+            if root == "pandas":
+                pandas_users.add((name, scope))
+    assert not module_level, module_level
+    assert pandas_users == PANDAS_FUNCTIONS, pandas_users
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     frames, datetimes = _archive()

@@ -197,8 +197,12 @@ def test_datamodule_fake_loaders_and_not_ported():
     train_loader, val_loader = datamodule.train_dataloader(), datamodule.val_dataloader()
     assert (len(train_loader), len(val_loader)) == (3, 2) and train_loader.shuffle and not val_loader.shuffle
     assert datamodule.configuration.input_data.satellite.satellite_image_size_pixels == 64
+    # a local dataset reads prepared shards (none here); remote paths raise
+    train_loader, _ = get_dataloaders(data_path=DATASET)
+    with pytest.raises(FileNotFoundError, match=r"no \d{6}\.shard or"):
+        next(iter(train_loader))
     with pytest.raises(NotImplementedError, match="M9"):
-        get_dataloaders(data_path=DATASET)
+        get_dataloaders(data_path="gs://bucket/v15")
 
 
 @pytest.mark.parametrize("t0", [
