@@ -1,5 +1,6 @@
 """Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast, the
-conv3d_sat_nwp serve and train paths, and the data path that feeds them.
+conv3d_sat_nwp serve and train paths, the data path that feeds them, and
+the perceiver family.
 
     python3 chip_smoke.py
 
@@ -54,12 +55,29 @@ Phases (any failure exits non-zero):
      (c) the learning gate on the card (``run_learnable``: trained conv3d
      NMAE < 0.85 × the persistence baseline's); (d) whether h5py,
      zstandard and fsspec import (information only);
-  9. the ``kernels`` line, then the result line.
+  9. perceiver: each of ``configs/model/perceiver.yaml``,
+     ``perceiver_sat_nwp.yaml`` and ``perceiver_conv3d_sat_nwp.yaml`` (literal
+     copies below) at its widths on fake data of the default geometry (11
+     satellite and 10 NWP channels at 64 px): (a) serve — card forward vs
+     the CPU's on the same seeded weights (≤ 1e-4 · max |y|), forward device
+     ms and top kernels against the fp32 bound reckoned from the layer
+     shapes, ``predict`` examples/s and busy share, a perceiver_pytorch-layout
+     ``.ckpt`` round trip with ``strict=True``; (b) train — one Adam step card
+     vs CPU (as 7 (a)), a timed ``Trainer.fit`` of 24 + 4 batches: step
+     device ms and its bound, steady examples/s, busy share of a traced
+     8-step fit, peak device memory; then (c) ``train(config)`` on a literal
+     of the composed ``experiment=perceiver`` config and (d) the JAX
+     package's perceiver learning gate on the card (16 epochs, lr 1e-3, the
+     best validation epoch < 0.85 × phase 8's persistence baseline on the
+     same archive);
+ 10. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
-path (phases 3 and 4) and read just after; the serve, train and data paths
-run no hand kernel (the JAX package computes them with XLA, outside any
-Pallas kernel), and their phases check that ``sep_blur`` launched 0 times.
+path (phases 3 and 4) and read just after; the serve, train, data and
+perceiver paths run no hand kernel (the JAX package computes them with XLA,
+outside any Pallas kernel; attention is PyTorch's
+``scaled_dot_product_attention``), and their phases check that ``sep_blur``
+launched 0 times.
 Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -166,6 +184,35 @@ TRAIN_CONFIG = {
     "seed": 518,
     "optimized_metric": "MSE/Validation_epoch",
 }
+
+
+#: phase 9: the perceiver family's model YAMLs as literals
+#: (tests/test_torch_perceiver.py holds them equal to the files), by zoo name
+PERCEIVERS = {
+    "perceiver": {
+        "_target_": "predict_pv_yield_tpu.models.perceiver.PerceiverModel",
+        "forecast_minutes": 30, "history_minutes": 60, "batch_size": 8, "num_latents": 128, "latent_dim": 64,
+        "embedding_dem": 16, "output_variable": "gsp_yield",
+    },
+    "perceiver_nwp_sat": {
+        "_target_": "predict_pv_yield_tpu.models.perceiver_nwp_sat.Model",
+        "forecast_minutes": 30, "history_minutes": 60, "batch_size": 8, "num_latents": 128, "latent_dim": 64,
+        "embedding_dem": 0, "output_variable": "gsp_yield",
+    },
+    "perceiver_conv3d_nwp_sat": {
+        "_target_": "predict_pv_yield_tpu.models.perceiver_conv3d_nwp_sat.Model",
+        "forecast_minutes": 30, "history_minutes": 60, "batch_size": 32, "num_latents": 24, "latent_dim": 24,
+        "embedding_dem": 0, "output_variable": "gsp_yield", "conv3d_channels": 8, "use_future_satellite_images": 0,
+    },
+}
+#: (a) and (b): examples of the card-vs-CPU comparisons, so that the CPU's
+#: side stays cheap (a CPU forward of a batch of 8 at perceiver.yaml's width
+#: takes ~20 s); one example still runs every frame through the encoder
+PERCEIVER_PARITY_BATCH = 1
+PERCEIVER_TRAIN_OVERRIDES = ["experiment=perceiver"] + TRAIN_OVERRIDES[1:]
+PERCEIVER_TRAIN_CONFIG = {**TRAIN_CONFIG, "model": PERCEIVERS["perceiver"]}
+PERCEIVER_GATE_EPOCHS, PERCEIVER_GATE_LR = 16, 1e-3  # tests/test_learning_gate.py:107-119
+PERCEIVER_TRACED_CALLS = 3  # forwards and train steps per profiler trace
 
 
 def log(message: str) -> None:
@@ -713,11 +760,11 @@ def _conv3d_sat_nwp_macs(model) -> int:
     return macs
 
 
-def _timed_fit(trainer, **fit_kwargs):
+def _timed_fit(trainer, batch_size=32, **fit_kwargs):
     """``trainer.fit`` of its set-up model, with a CUDA event recorded after
     every train step → (wall seconds, train steps, ms between the last
-    ``STEADY_STEPS`` step ends, the median train examples/s of those gaps):
-    the device's pace, step by step."""
+    ``STEADY_STEPS`` step ends, the median train examples/s of those gaps at
+    ``batch_size``): the device's pace, step by step."""
     marks = []
     step = trainer.train_step
 
@@ -734,7 +781,7 @@ def _timed_fit(trainer, **fit_kwargs):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     gaps = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])][-STEADY_STEPS:]
-    return seconds, len(marks), gaps, float(np.median([32e3 / gap for gap in gaps]))
+    return seconds, len(marks), gaps, float(np.median([batch_size * 1e3 / gap for gap in gaps]))
 
 
 def _rel_errs(grads, reference):
@@ -742,9 +789,11 @@ def _rel_errs(grads, reference):
     return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, reference)]
 
 
-def _train_parity(device):
-    """(a) One train step at batch 4 on the card and on the CPU, both from
-    the seed-0 weights, in full fp32.
+def _train_parity(device, make_model=None, tag="train"):
+    """(a) One train step on the card and on the CPU, both from the seed-0
+    weights, in full fp32; ``make_model`` builds the model (by default the
+    flagship at batch ``PARITY_BATCH``), whose own geometry the fake batch
+    takes.
 
     The early conv layers' fp32 gradients are fixed only to ~1e-3 of their
     largest entry at this width: the CPU's two fp32 implementations (oneDNN
@@ -756,13 +805,19 @@ def _train_parity(device):
     from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
     from predict_pv_yield_tpu_torch.training.engine import Trainer
 
-    config = {k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"}
-    config["batch_size"] = PARITY_BATCH
-    host = FakeDataset(model_configuration(Model(**config)), length=1)[0].numeric()
+    if make_model is None:
+        config = {k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"}
+        config["batch_size"] = PARITY_BATCH
+
+        def make_model():
+            return Model(**config)
+
+    geometry = make_model()
+    host = FakeDataset(model_configuration(geometry), length=1)[0].numeric()
     results = []
     for where in ("cpu", device):
         trainer = Trainer(device=where, profiler=None)
-        trainer.setup(Model(**config))
+        trainer.setup(make_model())
         metrics, grads = trainer.loss_and_grads(host.to(where))
         if where == "cpu":
             torch.backends.mkldnn.enabled = False
@@ -782,7 +837,7 @@ def _train_parity(device):
     over = sum(int(((card_params[k] - cpu_params[k]).abs() > 5e-5).sum()) for k in cpu_params)
     n_params = sum(v.numel() for v in cpu_params.values())
     above = sum(err > GRAD_REL_TOL for err in grad_errs)
-    log(f"[train] (a) one step at batch {PARITY_BATCH}, card vs CPU: NMAE {card_loss:.7f} vs {cpu_loss:.7f} "
+    log(f"[{tag}] (a) one step at batch {geometry.batch_size}, card vs CPU: NMAE {card_loss:.7f} vs {cpu_loss:.7f} "
         f"(|Δ| {loss_err:.3e}, limit {STEP_LOSS_TOL}); gradients max |Δ| / max |g| {max(grad_errs):.3e} "
         f"({above} of {len(grad_errs)} tensors above {GRAD_REL_TOL}); the CPU's two fp32 implementations "
         f"differ by {max(spread):.3e} ({sum(e > GRAD_REL_TOL for e in spread)} tensors above {GRAD_REL_TOL}), "
@@ -791,6 +846,8 @@ def _train_parity(device):
     check(loss_err <= STEP_LOSS_TOL, "the card's NMAE disagrees with the CPU's")
     check(max(grad_errs) <= grad_tol, "a card gradient disagrees with the CPU's")
     check(param_err <= STEP_PARAM_TOL, "the card's Adam step disagrees with the CPU's")
+    return {"step_nmae_err": loss_err, "step_grad_rel_err": max(grad_errs), "cpu_grad_spread": max(spread),
+            "step_param_err": param_err}
 
 
 def _train_bound_ms(model, batch_size, bandwidth, flops_peak):
@@ -1257,6 +1314,325 @@ def phase_data(device, cached):
     return results
 
 
+def _perceiver_macs(model) -> int:
+    """Multiply-accumulates of one example's forward, from the layer
+    shapes: the stems' convolutions; per frame the K/V projection of the
+    input once per distinct block, then at every depth step the latents'
+    projections, the attention products (logits and the weighted sum, per
+    head) and the feed-forwards, and the head; the frame MLP; the GRUs."""
+    encoder = model.perceiver
+    n_latents = encoder.latents.shape[0]
+    cross, cross_ff, latent = encoder.layers[0]
+    side, macs = model.image_size_pixels, 0
+    if hasattr(model, "sat_conv3d_maxpool"):
+        for stem, px, steps in ((model.sat_conv3d_maxpool, model.image_size_pixels, model.total_seq_length),
+                                (model.nwp_conv3d_maxpool, model.nwp_image_size_pixels, model.seq_lens.seq_len_60)):
+            macs += stem.conv.weight.numel() * steps * px * px
+        side = (side - 1) // 2 + 1  # the stem's stride-2 pool
+    tokens = side * side
+
+    def weights(module):
+        return sum(m.weight.numel() for m in module.modules() if isinstance(m, torch.nn.Linear))
+
+    step = n_latents * (weights(cross.fn) - cross.fn.to_kv.weight.numel()) + 2 * n_latents * tokens * (
+        cross.fn.heads * cross.fn.dim_head) + n_latents * weights(cross_ff)
+    for attn, ff in latent:
+        step += n_latents * (weights(attn) + weights(ff)) + 2 * attn.fn.heads * n_latents**2 * attn.fn.dim_head
+    distinct = len({id(layer) for layer in encoder.layers})
+    frame = distinct * tokens * cross.fn.to_kv.weight.numel() + encoder.depth * step + weights(encoder.to_logits)
+    frame += sum(getattr(model, f"fc{i}").weight.numel() for i in range(1, 6))
+    rnn_steps = ((model.history_len_5 if model.output_variable == "pv_yield" else model.history_len_30) + 1,
+                 model.forecast_len)
+    rnn = sum(steps * sum(p.numel() for n, p in gru.named_parameters() if n.startswith("weight"))
+              for steps, gru in zip(rnn_steps, (model.encoder_rnn, model.decoder_rnn)))
+    return macs + model.total_seq_length * frame + rnn + model.decoder_fc1.weight.numel() * model.forecast_len
+
+
+def _attention_precision(device):
+    """Phase 9 (a): whether the memory-efficient SDPA kernel, the serve
+    path's, computes fp32 attention in fp32 or in TF32. One call at
+    perceiver.yaml's cross-attention shape (8 frames, 1 head: 128 latent
+    queries over 4096 input tokens of 64 channels; seeded normal inputs, the
+    queries ×3 for a sharp softmax) against the plain product in float64,
+    beside the plain product in fp32 and with TF32 matmuls allowed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    generator = torch.Generator(device=device).manual_seed(0)
+    q = 3 * torch.randn((8, 1, 128, 64), generator=generator, device=device)
+    k, v = (torch.randn((8, 1, 4096, 64), generator=generator, device=device) for _ in range(2))
+
+    def attend(backend, dtype=torch.float32):
+        with torch.inference_mode(), sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(q.to(dtype), k.to(dtype), v.to(dtype)).double()
+
+    reference = attend(SDPBackend.MATH, torch.float64)
+    outputs = {"efficient": attend(SDPBackend.EFFICIENT_ATTENTION), "plain fp32": attend(SDPBackend.MATH)}
+    matmul = torch.backends.cuda.matmul
+    previous, matmul.allow_tf32 = matmul.allow_tf32, True
+    try:
+        outputs["plain TF32"] = attend(SDPBackend.MATH)
+    finally:
+        matmul.allow_tf32 = previous
+    scale = float(reference.abs().max())
+    errors = {name: float((out - reference).abs().max()) / scale for name, out in outputs.items()}
+    log("[perceiver] (a) fp32 attention at (8,1,128,64) x (8,1,4096,64) against float64, max |Δ| / max |y|: "
+        + ", ".join(f"{name} {err:.3e}" for name, err in errors.items()))
+    return {f"attention_err_{name.replace(' ', '_')}": err for name, err in errors.items()}
+
+
+def _perceiver_serve(device, name, config, batches, flops_peak):
+    """Phase 9 (a) for one model on the host ``batches``: card vs CPU
+    forward, the ``.ckpt`` round trip, forward device time against the
+    bound, ``predict``'s rate and the busy share."""
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.models import perceiver_core
+    from predict_pv_yield_tpu_torch.utils import full_fp32
+
+    model = serve.build_model(name, config, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    host = batches[0].numeric()
+    batch_size = host.satellite.data.shape[0]
+    few = host.map(lambda _, leaf: leaf[:PERCEIVER_PARITY_BATCH])  # the examples the CPU compares
+    # the encoder's output (fc1's input) of each forward, on the host: the
+    # head's ReLUs can hide an encoder fault from the forecasts
+    encoded = []
+    hook = model.perceiver.register_forward_hook(lambda module, args, out: encoded.append(out.detach().cpu()))
+    start = time.perf_counter()
+    with torch.inference_mode(), full_fp32():
+        on_cpu = model(few)
+    cpu_seconds = time.perf_counter() - start
+    model.to(device)
+    card_batch = host.to(device)
+    with torch.inference_mode(), full_fp32():
+        on_card = model(card_batch)
+        on_card_few = model(few.to(device))
+        backend = perceiver_core.sdpa_backend(device).name  # the serve path's: no autograd
+    hook.remove()
+    readings = {}
+    for label, cpu, card in (("forecasts", on_cpu, on_card_few.cpu()), ("encoder", encoded[0], encoded[-1])):
+        scale = float(cpu.abs().max())
+        readings[label] = (float((card - cpu).abs().max()), scale, tuple(cpu.shape))
+    log(f"[perceiver] {name}: {n_params:,} parameters, depth {model.perceiver.depth}; satellite "
+        f"{tuple(host.satellite.data.shape)}, NWP {tuple(host.nwp.data.shape)}; card "
+        f"({backend} attention) vs CPU at {PERCEIVER_PARITY_BATCH} example(s): "
+        + "; ".join(f"{label} {shape} max abs diff {err:.3e}, limit {SERVE_TOL} x max |y| {scale:.4f}"
+                    for label, (err, scale, shape) in readings.items())
+        + f" (the CPU forward {cpu_seconds:.2f} s)")
+    check(tuple(on_card.shape) == (batch_size, model.forecast_len) and bool(torch.isfinite(on_card).all()),
+          "forward shape or NaN")
+    for label, (err, scale, _) in readings.items():
+        check(err <= SERVE_TOL * scale, f"card {label} disagree with the CPU's")
+
+    # a perceiver_pytorch-layout Lightning checkpoint, loaded with strict=True
+    state = model.state_dict()
+    check(f"perceiver.layers.{model.perceiver.depth - 1}.2.0.0.fn.to_kv.weight" in state
+          and model.perceiver.layers[1] is model.perceiver.layers[-1], "perceiver_pytorch layout or tying")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, f"{name}.ckpt")
+        torch.save({"state_dict": {f"model.{k}": v.cpu() for k, v in state.items()}}, ckpt)
+        loaded = serve.build_model(name, config, checkpoint=ckpt, seed=1).to(device)
+    with torch.inference_mode(), full_fp32():
+        again = loaded(card_batch)
+    check(torch.equal(again, on_card), "the .ckpt round trip changed the forecasts")
+    del loaded
+
+    def forward():
+        with torch.inference_mode(), full_fp32():
+            model(card_batch)
+
+    events = _device_events(forward, calls=PERCEIVER_TRACED_CALLS)
+    forward_ms = sum(e.self_device_time_total for e in events) / PERCEIVER_TRACED_CALLS / 1e3
+    flops = 2 * _perceiver_macs(model) * batch_size
+    bound_ms = flops / flops_peak * 1e3
+    attention = [e.key for e in events if "fmha" in e.key.lower() or "attention" in e.key.lower()]
+    log(f"[perceiver] {name} .ckpt round trip (strict=True, {len(state)} keys): forecasts equal; forward device "
+        f"time per batch of {batch_size}: {forward_ms:.4f} ms; fp32 bound {bound_ms:.4f} ms "
+        f"({flops / 1e9:.1f} GFLOP), {bound_ms / forward_ms:.1%} of it; attention kernels: "
+        + ("; ".join(sorted(set(k[:90] for k in attention))) or "none named"))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[perceiver]   {e.self_device_time_total / PERCEIVER_TRACED_CALLS / 1e3:8.4f} ms  "
+            f"x{e.count // PERCEIVER_TRACED_CALLS:<3d} {e.key[:110]}")
+    def serve_batches():
+        serve.predict(model, batches, device)
+
+    serve_batches()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        serve_batches()
+        times.append(time.perf_counter() - start)
+    seconds = float(np.median(times))
+    rate = len(batches) * batch_size / seconds
+    busy, traced = _busy_share(serve_batches)
+    log(f"[perceiver] {name} predict over {len(batches)} host batches of {batch_size}: "
+        f"{seconds / len(batches) * 1e3:.4f} ms per batch, {rate:.2f} examples/s; device busy {busy:.1%} "
+        f"of a traced call ({traced * 1e3:.3f} ms)")
+    return {"serve_err": readings["forecasts"][0], "serve_err_limit": SERVE_TOL * readings["forecasts"][1],
+            "encoder_err": readings["encoder"][0], "encoder_err_limit": SERVE_TOL * readings["encoder"][1],
+            "forward_ms": forward_ms, "forward_bound_ms": bound_ms, "serve_examples_per_s": rate,
+            "serve_busy_share": busy}
+
+
+def _perceiver_train(device, name, config, unique, bandwidth, flops_peak):
+    """Phase 9 (b) for one model on the ``unique`` host batches (train,
+    then validation): one step card vs CPU, the step's device time against
+    its bound, a timed fit, its busy share and peak memory."""
+    from predict_pv_yield_tpu_torch.models import get_model
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    cls = get_model(name)
+    kwargs = {k: v for k, v in config.items() if k != "_target_"}
+    start = time.perf_counter()
+    parity = _train_parity(device, lambda: cls(**{**kwargs, "batch_size": PERCEIVER_PARITY_BATCH}), "perceiver")
+    parity_seconds = time.perf_counter() - start
+
+    batch_size = config["batch_size"]
+    train_batches = unique[:TRAIN_UNIQUE] * (TRAIN_BATCHES // TRAIN_UNIQUE)
+    val_batches = unique[TRAIN_UNIQUE:]
+
+    profiled = Trainer(device=device, profiler=None)
+    profiled.setup(cls(**kwargs))
+    card_batch = unique[0].numeric().to(device)
+    events = _device_events(lambda: profiled.train_step(card_batch), calls=PERCEIVER_TRACED_CALLS)
+    step_ms = sum(e.self_device_time_total for e in events) / PERCEIVER_TRACED_CALLS / 1e3
+    flops = 3 * 2 * _perceiver_macs(profiled._model) * batch_size
+    adam_bytes = 7 * 4 * sum(p.numel() for p in profiled._model.parameters())
+    bound_ms = flops / flops_peak * 1e3 + adam_bytes / bandwidth * 1e3
+    log(f"[perceiver] {name} train step device time per batch of {batch_size}: {step_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP at fp32 + Adam {adam_bytes / 1e9:.4f} GB), "
+        f"{bound_ms / step_ms:.1%} of it")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[perceiver]   {e.self_device_time_total / PERCEIVER_TRACED_CALLS / 1e3:8.4f} ms  "
+            f"x{e.count // PERCEIVER_TRACED_CALLS:<3d} {e.key[:110]}")
+    del profiled, card_batch
+    traced_seconds = time.perf_counter() - start - parity_seconds
+
+    trainer = Trainer(max_epochs=1, device=device)
+    trainer.setup(cls(**kwargs))
+    torch.cuda.reset_peak_memory_stats(device)
+    fit_seconds, steps, gaps, rate = _timed_fit(trainer, batch_size=batch_size, train_dataloaders=train_batches,
+                                                val_dataloaders=val_batches)
+    peak = torch.cuda.max_memory_allocated(device)
+    check(steps == TRAIN_BATCHES and np.isfinite(trainer.callback_metrics["NMAE/Train_epoch"]), "fit steps or NaN")
+    del trainer
+    traced = Trainer(max_epochs=1, device=device, profiler=None)
+    traced.setup(cls(**kwargs))
+    busy, wall = _busy_share(lambda: traced.fit(traced._model, train_dataloaders=train_batches[:8]), warm=False)
+    del traced
+    log(f"[perceiver] {name} fit over {TRAIN_BATCHES}x{batch_size} train + {VAL_BATCHES}x{batch_size} validation "
+        f"batches: {fit_seconds:.3f} s; steady pace of the last {STEADY_STEPS} steps {np.median(gaps):.4f} ms per "
+        f"step (median), {rate:.2f} train examples/s; peak device memory {peak / 2**30:.3f} GiB; device busy "
+        f"{busy:.1%} of a traced 8-step fit ({wall * 1e3:.3f} ms); the one-step parity took "
+        f"{parity_seconds:.2f} s, the step's trace {traced_seconds:.2f} s")
+    return {**parity, "train_step_ms": step_ms, "train_bound_ms": bound_ms, "train_examples_per_s": rate,
+            "train_busy_share": busy, "train_peak_bytes": peak}
+
+
+def _perceiver_pipeline(device):
+    """Phase 9 (c): ``train(config)`` on the literal composed
+    ``experiment=perceiver`` config, 2 train and 1 validation batch."""
+    import copy
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.config.instantiate import instantiate
+    from predict_pv_yield_tpu_torch.data.fake import model_configuration
+    from predict_pv_yield_tpu_torch.models.perceiver import PerceiverModel
+    from predict_pv_yield_tpu_torch.training.pipeline import train
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            run_config = copy.deepcopy(PERCEIVER_TRAIN_CONFIG)
+            datamodule = instantiate(run_config["datamodule"])
+            model = PerceiverModel(**{k: v for k, v in run_config["model"].items() if k != "_target_"})
+            datamodule.configuration = model_configuration(model)  # batches of the model's batch_size
+            start = time.perf_counter()
+            metric = train(run_config, datamodule=datamodule)
+            seconds = time.perf_counter() - start
+            check(metric is not None and np.isfinite(metric), f"optimized_metric {metric}")
+            check(os.path.exists("checkpoints/epoch_000/state.pt"), "the pipeline wrote no best checkpoint")
+        finally:
+            os.chdir(cwd)
+    log(f"[perceiver] (c) train(config) of {' '.join(PERCEIVER_TRAIN_OVERRIDES)}: "
+        f"{PERCEIVER_TRAIN_CONFIG['optimized_metric']} {metric:.6f}, best checkpoint written, {seconds:.2f} s")
+
+
+def _perceiver_gate(baseline):
+    """Phase 9 (d): the JAX package's perceiver learning gate on the card:
+    perceiver_conv3d_sat_nwp at gate scale, 16 epochs at lr 1e-3, judged on
+    its best validation epoch against the persistence ``baseline`` of the
+    same archive (phase 8 (c) wrote it from the same seed)."""
+    import contextlib
+    import csv
+    import glob
+    import io
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.data import synthetic
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        archive = synthetic.make_learnable_archive(os.path.join(tmp, "learnable"), n_frames=288, px=24, n_gsp=4,
+                                                   seed=0, with_nwp=True)
+        workdir = os.path.join(tmp, "gate_trained")
+        os.makedirs(workdir)
+        overrides = synthetic.perceiver_gate_overrides(archive) + [
+            f"trainer.max_epochs={PERCEIVER_GATE_EPOCHS}", f"+trainer.learning_rate={PERCEIVER_GATE_LR}"]
+        with contextlib.redirect_stdout(io.StringIO()):  # the config tree and the profiler summary
+            synthetic.run_learnable(archive, overrides, workdir=workdir)
+        scores = []
+        for path in glob.glob(os.path.join(workdir, "**", "metrics.csv"), recursive=True):
+            with open(path, newline="") as fh:
+                scores += [float(row[synthetic.GATE_METRIC]) for row in csv.DictReader(fh)
+                           if row.get(synthetic.GATE_METRIC)]
+    check(len(scores) == PERCEIVER_GATE_EPOCHS, f"{len(scores)} validation epochs")
+    best = min(scores)
+    log(f"[perceiver] (d) learning gate on the card: perceiver_conv3d_sat_nwp best of {len(scores)} validation "
+        f"epochs {synthetic.GATE_METRIC} {best:.6f} (epoch {scores.index(best)}; last {scores[-1]:.6f}), persistence "
+        f"baseline {baseline:.6f}, ratio {best / baseline:.4f} (limit {GATE_MARGIN}); "
+        f"{time.perf_counter() - start:.2f} s")
+    check(best < GATE_MARGIN * baseline, "the trained perceiver does not beat persistence")
+    return {"trained_nmae": best, "baseline_nmae": baseline}
+
+
+def phase_perceiver(device, bandwidth, flops_peak, baseline_nmae):
+    """Phase 9: the perceiver family, serve and train at the widths of its
+    YAMLs, the pipeline and the learning gate (against ``baseline_nmae``,
+    phase 8's persistence baseline on the same archive)."""
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    blur.launches = 0
+    start = time.perf_counter()
+    results = {"attention": _attention_precision(device)}
+    for name, config in PERCEIVERS.items():
+        began = time.perf_counter()
+        # fake batches of the model's geometry (seed 0), generated before timing:
+        # the first SERVE_BATCHES serve, all but the last VAL_BATCHES train
+        unique = list(serve.fake_loader(serve.build_model(name, config), TRAIN_UNIQUE + VAL_BATCHES))
+        generated = time.perf_counter()
+        results[name] = _perceiver_serve(device, name, config, unique[:SERVE_BATCHES], flops_peak)
+        served = time.perf_counter()
+        results[name].update(_perceiver_train(device, name, config, unique, bandwidth, flops_peak))
+        log(f"[perceiver] {name}: {time.perf_counter() - began:.2f} s ({generated - began:.2f} s generating "
+            f"{len(unique)} batches, serve {served - generated:.2f} s, train {time.perf_counter() - served:.2f} s)")
+        del unique
+        torch.cuda.empty_cache()
+    _perceiver_pipeline(device)
+    results["gate"] = _perceiver_gate(baseline_nmae)
+    check(blur.launches == 0, "the perceiver path launched sep_blur")
+    log(f"[perceiver] phase 9: {time.perf_counter() - start:.2f} s")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -1285,6 +1661,7 @@ def main() -> int:
     serve = phase_serve(device, bandwidth, flops_peak)
     trained = phase_train(device, bandwidth, flops_peak)
     data = phase_data(device, trained)
+    perceivers = phase_perceiver(device, bandwidth, flops_peak, data["baseline_nmae"])
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -1305,7 +1682,7 @@ def main() -> int:
         "call_ms": headline["call_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
-                    **trained, **data}))
+                    **trained, **data, "perceivers": perceivers}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -40,7 +40,6 @@ TARGET_ALIASES: Dict[str, Callable] = {
 }
 
 _MODELS_LATER = "M10: conv3d, conv3d_nwp"
-_PERCEIVERS = "M11: the perceiver family"
 _EXPERIMENTS = "M12: experiments 001/002"
 _SAAS = "T7: the TensorBoard and SaaS loggers"
 
@@ -50,12 +49,6 @@ NOT_PORTED: Dict[str, str] = {
     "predict_pv_yield.models.conv3d.model.Model": _MODELS_LATER,
     "predict_pv_yield_tpu.models.conv3d_nwp.Model": _MODELS_LATER,
     "predict_pv_yield.models.conv3d.model_nwp.Model": _MODELS_LATER,
-    "predict_pv_yield_tpu.models.perceiver.PerceiverModel": _PERCEIVERS,
-    "predict_pv_yield.models.perceiver.perceiver.PerceiverModel": _PERCEIVERS,
-    "predict_pv_yield_tpu.models.perceiver_nwp_sat.Model": _PERCEIVERS,
-    "predict_pv_yield.models.perceiver.perceiver_nwp_sat.Model": _PERCEIVERS,
-    "predict_pv_yield_tpu.models.perceiver_conv3d_nwp_sat.Model": _PERCEIVERS,
-    "predict_pv_yield.models.perceiver.perceiver_conv3d_nwp_sat.Model": _PERCEIVERS,
     "predict_pv_yield_tpu.models.experimental.CNNConcatTimesteps": _EXPERIMENTS,
     "predict_pv_yield_tpu.models.experimental.CNNRNN": _EXPERIMENTS,
     "predict_pv_yield_tpu.training.loggers.TensorBoardLogger": _SAAS,

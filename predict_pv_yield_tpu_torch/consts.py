@@ -79,3 +79,6 @@ N_GSPS_PER_EXAMPLE = 32
 
 #: Size of the system-ID embedding table of the conv3d family.
 N_PV_SYSTEM_IDS = 940
+
+#: Size of the system-ID embedding table of the perceiver family.
+N_PERCEIVER_EMBEDDING_IDS = 2048

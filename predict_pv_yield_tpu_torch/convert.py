@@ -10,7 +10,10 @@ JAX. Layouts:
 * the ``Dense`` after a flattened conv tower also has its input rows
   reordered: the JAX package flattens channel-last (T, H, W, C), torch
   channel-first (C, T, H, W) — :func:`flatten_permutation` maps the two;
-* ``Embed.embedding`` → ``Embedding.weight`` unchanged.
+* ``Embed.embedding`` → ``Embedding.weight`` unchanged;
+* the perceiver family's flax tree → perceiver_pytorch's module tree
+  (:func:`perceiver_from_flax`), the inverse of the JAX package's
+  ``convert_perceiver_model`` / ``convert_perceiver_pytorch_encoder``.
 """
 
 from __future__ import annotations
@@ -80,11 +83,20 @@ def conv3d_sat_nwp_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
     ``conv3d_sat_nwp`` parameters (the variables dict or its ``"params"``).
 
     ``model`` is the port model whose geometry fixes the flatten orders;
-    the inverse of the JAX package's ``convert_conv3d_sat_nwp``.
+    its ``fc3`` and ``pv_fc1`` take their widths from the flax kernels (the
+    JAX model sizes both from its first batch), so the weights always fit.
+    The inverse of the JAX package's ``convert_conv3d_sat_nwp``.
     """
     if "params" in params:
         params = params["params"]
     n, ch = model.number_of_conv3d_layers, model.conv3d_channels
+    yield_series, pv_series = model.yield_history_series, model.pv_history_series
+    if model.include_pv_yield_history:
+        pv_series = np.shape(params["pv_fc1"]["kernel"])[0] // (model.history_len_5 + 1)
+    if model.include_pv_or_gsp_yield_history:
+        others = model.fc3_in_features - model.yield_history_series * (model.history_len_30 + 1)
+        yield_series = (np.shape(params["fc3"]["kernel"])[0] - others) // (model.history_len_30 + 1)
+    model.size_yield_inputs(yield_series, pv_series)
     state: Dict[str, torch.Tensor] = {}
 
     def linear(name: str, layer: Mapping, flattened=None) -> None:
@@ -114,6 +126,103 @@ def conv3d_sat_nwp_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
         state["pv_system_id_embedding.weight"] = _tensor(params["pv_system_id_embedding"]["embedding"])
     linear("fc3", params["fc3"])
     linear("fc4", params["fc4"])
+    return state
+
+
+def _perceiver_attention(params: Mapping, prefix: str, state: Dict) -> None:
+    """flax ``to_q``/``to_k``/``to_v`` → ``to_q`` and the fused ``to_kv``
+    (K rows first, as ``to_kv(context).chunk(2)`` splits it); ``to_out``."""
+    state[f"{prefix}.to_q.weight"] = _tensor(np.asarray(params["to_q"]["kernel"]).T)
+    state[f"{prefix}.to_kv.weight"] = _tensor(np.concatenate(
+        [np.asarray(params["to_k"]["kernel"]).T, np.asarray(params["to_v"]["kernel"]).T]))
+    _perceiver_linear(params["to_out"], f"{prefix}.to_out", state)
+
+
+def _perceiver_linear(layer: Mapping, name: str, state: Dict) -> None:
+    state[f"{name}.weight"] = _tensor(np.asarray(layer["kernel"]).T)
+    state[f"{name}.bias"] = _tensor(layer["bias"])
+
+
+def _perceiver_norm(layer: Mapping, name: str, state: Dict) -> None:
+    state[f"{name}.weight"] = _tensor(layer["scale"])
+    state[f"{name}.bias"] = _tensor(layer["bias"])
+
+
+def _perceiver_block(params: Mapping, prefix: str, state: Dict) -> None:
+    """One flax ``PerceiverBlock`` → ``layers.{i}``: ``0`` cross-attention,
+    ``1`` its feed-forward, ``2.{j}.0`` / ``2.{j}.1`` latent attention and
+    feed-forward."""
+    _perceiver_norm(params["cross_norm"], f"{prefix}.0.norm", state)
+    _perceiver_norm(params["cross_context_norm"], f"{prefix}.0.norm_context", state)
+    _perceiver_attention(params["cross_attn"], f"{prefix}.0.fn", state)
+    _perceiver_norm(params["cross_ff_norm"], f"{prefix}.1.norm", state)
+    _perceiver_linear(params["cross_ff"]["in"], f"{prefix}.1.fn.net.0", state)
+    _perceiver_linear(params["cross_ff"]["out"], f"{prefix}.1.fn.net.2", state)
+    j = 0
+    while f"self_attn{j}" in params:
+        latent = f"{prefix}.2.{j}"
+        _perceiver_norm(params[f"self_norm{j}"], f"{latent}.0.norm", state)
+        _perceiver_attention(params[f"self_attn{j}"], f"{latent}.0.fn", state)
+        _perceiver_norm(params[f"self_ff_norm{j}"], f"{latent}.1.norm", state)
+        _perceiver_linear(params[f"self_ff{j}"]["in"], f"{latent}.1.fn.net.0", state)
+        _perceiver_linear(params[f"self_ff{j}"]["out"], f"{latent}.1.fn.net.2", state)
+        j += 1
+
+
+def _perceiver_encoder(params: Mapping, depth: int, prefix: str, state: Dict) -> None:
+    """A flax ``Perceiver`` → ``latents``, ``layers.{i}`` for every depth
+    step (the tied ``block`` written at each index 1..depth−1, as
+    ``nn.ModuleList`` serialises a shared module; an untied encoder's
+    ``block{i}`` at its own index) and ``to_logits.{1,2}``."""
+    state[f"{prefix}.latents"] = _tensor(params["latents"])
+    for i in range(depth):
+        block = params["block"]["inner"] if i and "block" in params else params[f"block{i}"]
+        _perceiver_block(block, f"{prefix}.layers.{i}", state)
+    _perceiver_norm(params["head_norm"], f"{prefix}.to_logits.1", state)
+    _perceiver_linear(params["to_logits"], f"{prefix}.to_logits.2", state)
+
+
+def _gru(params: Mapping, prefix: str, state: Dict) -> None:
+    """flax ``StackedGRU`` cells → ``nn.GRU`` weights, gates (r, z, n) row
+    by row. flax's r and z gates have one bias, on the input side: it goes
+    to ``bias_ih`` and ``bias_hh`` is zero there; the n gate keeps both, as
+    ``b_hn`` sits inside the reset gate's product in both frameworks."""
+    for layer in range(len(params)):
+        cell = params[f"gru{layer}"]
+
+        def stack(gates, key):
+            return _tensor(np.concatenate([np.asarray(cell[g][key], np.float32).T for g in gates]))
+
+        hidden = np.shape(cell["hr"]["kernel"])[0]
+        state[f"{prefix}.weight_ih_l{layer}"] = stack(("ir", "iz", "in"), "kernel")
+        state[f"{prefix}.weight_hh_l{layer}"] = stack(("hr", "hz", "hn"), "kernel")
+        state[f"{prefix}.bias_ih_l{layer}"] = stack(("ir", "iz", "in"), "bias")
+        state[f"{prefix}.bias_hh_l{layer}"] = _tensor(np.concatenate(
+            [np.zeros(2 * hidden, np.float32), np.asarray(cell["hn"]["bias"], np.float32)]))
+
+
+def perceiver_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for the JAX package's parameters of a
+    perceiver-family ``model`` (the variables dict or its ``"params"``):
+    the stems, the encoder in perceiver_pytorch's layout, ``fc1`` …
+    ``fc5``, the id embedding, the two GRUs and the decoder head. The
+    model's input widths must be those of the data the flax parameters
+    were made for (``match_configuration``)."""
+    if "params" in params:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+    for stem in ("sat_conv3d_maxpool", "nwp_conv3d_maxpool"):
+        if stem in params:
+            conv = params[stem]["conv"]
+            state[f"{stem}.conv.weight"] = _tensor(_conv_weight(np.asarray(conv["kernel"])))
+            state[f"{stem}.conv.bias"] = _tensor(conv["bias"])
+    _perceiver_encoder(params["perceiver"], model.total_seq_length, "perceiver", state)
+    for name in ("fc1", "fc2", "fc3", "fc4", "fc5", "decoder_fc1", "decoder_fc2"):
+        _perceiver_linear(params[name], name, state)
+    if "pv_system_id_embedding" in params:
+        state["pv_system_id_embedding.weight"] = _tensor(params["pv_system_id_embedding"]["embedding"])
+    _gru(params["encoder_rnn"], "encoder_rnn", state)
+    _gru(params["decoder_rnn"], "decoder_rnn", state)
     return state
 
 

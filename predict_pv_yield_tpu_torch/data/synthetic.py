@@ -271,8 +271,9 @@ BASELINE_GATE_OVERRIDES = [
 
 def perceiver_gate_overrides(arch: LearnableArchive) -> list:
     """perceiver_conv3d_sat_nwp at gate scale with the real-NWP branch live
-    (requires ``make_learnable_archive(..., with_nwp=True)``). The port has
-    no perceiver yet: this gate runs once ROADMAP M11 lands."""
+    (requires ``make_learnable_archive(..., with_nwp=True)``); the JAX
+    package's perceiver gate, which ``chip_smoke.py`` runs on the card with
+    16 epochs at lr 1e-3."""
     return [
         "model=perceiver_conv3d_sat_nwp",
         "model.history_minutes=30",

@@ -11,11 +11,17 @@ from typing import Dict, Type
 
 from predict_pv_yield_tpu_torch.models import baseline as _baseline
 from predict_pv_yield_tpu_torch.models import conv3d_sat_nwp as _conv3d_sat_nwp
+from predict_pv_yield_tpu_torch.models import perceiver as _perceiver
+from predict_pv_yield_tpu_torch.models import perceiver_conv3d_nwp_sat as _perceiver_conv3d_nwp_sat
+from predict_pv_yield_tpu_torch.models import perceiver_nwp_sat as _perceiver_nwp_sat
 
 MODEL_REGISTRY: Dict[str, Type] = {
     "last_value": _baseline.Model,
     "baseline": _baseline.Model,
     "conv3d_sat_nwp": _conv3d_sat_nwp.Model,
+    "perceiver": _perceiver.PerceiverModel,
+    "perceiver_nwp_sat": _perceiver_nwp_sat.Model,
+    "perceiver_conv3d_nwp_sat": _perceiver_conv3d_nwp_sat.Model,
 }
 
 MODEL_TARGETS: Dict[str, Type] = {
@@ -23,6 +29,12 @@ MODEL_TARGETS: Dict[str, Type] = {
     "predict_pv_yield.models.baseline.last_value.Model": _baseline.Model,
     "predict_pv_yield_tpu.models.conv3d_sat_nwp.Model": _conv3d_sat_nwp.Model,
     "predict_pv_yield.models.conv3d.model_sat_nwp.Model": _conv3d_sat_nwp.Model,
+    "predict_pv_yield_tpu.models.perceiver.PerceiverModel": _perceiver.PerceiverModel,
+    "predict_pv_yield.models.perceiver.perceiver.PerceiverModel": _perceiver.PerceiverModel,
+    "predict_pv_yield_tpu.models.perceiver_nwp_sat.Model": _perceiver_nwp_sat.Model,
+    "predict_pv_yield.models.perceiver.perceiver_nwp_sat.Model": _perceiver_nwp_sat.Model,
+    "predict_pv_yield_tpu.models.perceiver_conv3d_nwp_sat.Model": _perceiver_conv3d_nwp_sat.Model,
+    "predict_pv_yield.models.perceiver.perceiver_conv3d_nwp_sat.Model": _perceiver_conv3d_nwp_sat.Model,
 }
 
 

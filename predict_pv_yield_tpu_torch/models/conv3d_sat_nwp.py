@@ -5,7 +5,8 @@ torch model's module names, so its Lightning checkpoints load with
 
 * ``sat_conv{i}`` (5-minute satellite tower) → ``fc1`` → ``fc2``;
 * the 30-minute GSP/PV yield history of the target variable;
-* ``pv_fc1``: the 5-minute PV history of the first 128 systems;
+* ``pv_fc1``: the 5-minute PV history of the first 128 systems (fewer
+  where the data carries fewer);
 * ``nwp_conv{i}`` (60-minute NWP tower) → ``nwp_fc1`` → ``nwp_fc2``;
 * ``pv_system_id_embedding``: 940-way system-ID embedding;
 * the head ``fc3`` → ``fc4``.
@@ -87,11 +88,13 @@ class Model(BaseModel):
         #: yield series (GSPs or PV systems per example) in the history
         #: input; the reference's width until ``match_configuration``
         self.yield_history_series = self.number_of_samples_per_batch
+        #: PV systems in the 5-minute PV branch: min(systems per example, 128)
+        self.pv_history_series = self.number_of_pv_samples_per_batch
         add_conv3d_tower(self, "sat_conv", number_sat_channels, ch, n, pad_time=True)
         self.fc1 = nn.Linear(self.cnn_output_size, fc1_output_features)
         self.fc2 = nn.Linear(fc1_output_features, fc2_output_features)
         if include_pv_yield_history:
-            self.pv_fc1 = nn.Linear(128 * (self.history_len_5 + 1), 128)
+            self.pv_fc1 = nn.Linear(self.pv_history_series * (self.history_len_5 + 1), 128)
         if include_nwp:
             add_conv3d_tower(self, "nwp_conv", number_nwp_channels, ch, n, pad_time=True)
             self.nwp_fc1 = nn.Linear(self.nwp_cnn_output_size, fc1_output_features)
@@ -117,18 +120,25 @@ class Model(BaseModel):
         return width + (self.embedding_dem or 0)
 
     def match_configuration(self, configuration) -> None:
-        """Size ``fc3`` for the yield history that batches of the dataset
-        ``configuration`` carry (its GSPs or PV systems per example) in place
-        of the reference's fixed ``number_of_samples_per_batch``, as the JAX
-        model takes that width from its first batch. The trainer calls this
-        before it draws the parameters; a changed ``fc3`` is a new layer."""
+        """Size the yield-history inputs for the batches of the dataset
+        ``configuration``, in place of the reference's fixed widths, as the
+        JAX model takes them from its first batch: ``fc3`` for its GSPs or
+        PV systems per example, ``pv_fc1`` for min(PV systems, 128). The
+        trainer calls this before it draws the parameters; a resized layer
+        is a new layer."""
         input_data = configuration.input_data
-        series = (input_data.gsp.n_gsp_per_example if self.output_variable == "gsp_yield"
-                  else input_data.pv.n_pv_systems_per_example)
-        if not self.include_pv_or_gsp_yield_history or series == self.yield_history_series:
-            return
-        self.yield_history_series = series
-        self.fc3 = nn.Linear(self.fc3_in_features, self.fc3_output_features)
+        n_pv = input_data.pv.n_pv_systems_per_example
+        series = input_data.gsp.n_gsp_per_example if self.output_variable == "gsp_yield" else n_pv
+        self.size_yield_inputs(series, min(n_pv, self.number_of_pv_samples_per_batch))
+
+    def size_yield_inputs(self, yield_history_series: int, pv_history_series: int) -> None:
+        """Rebuild ``fc3`` and ``pv_fc1`` where their series counts change."""
+        if self.include_pv_or_gsp_yield_history and yield_history_series != self.yield_history_series:
+            self.yield_history_series = yield_history_series
+            self.fc3 = nn.Linear(self.fc3_in_features, self.fc3_output_features)
+        if self.include_pv_yield_history and pv_history_series != self.pv_history_series:
+            self.pv_history_series = pv_history_series
+            self.pv_fc1 = nn.Linear(pv_history_series * (self.history_len_5 + 1), 128)
 
     @property
     def sat_time_steps(self) -> int:
@@ -170,7 +180,7 @@ class Model(BaseModel):
 
         # 5-minute PV history branch, first 128 systems
         if self.include_pv_yield_history:
-            pv_history = x.pv.pv_yield[:, : self.history_len_5 + 1, :128]
+            pv_history = x.pv.pv_yield[:, : self.history_len_5 + 1, : self.number_of_pv_samples_per_batch]
             pv_history = torch.nan_to_num(pv_history.float(), nan=0.0).reshape(batch_size, -1)
             out = torch.cat([out, F.relu(self.pv_fc1(pv_history))], dim=1)
 

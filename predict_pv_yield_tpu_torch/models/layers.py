@@ -13,20 +13,49 @@ from torch import nn
 
 
 def init_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Re-draw every parameter from ``generator`` with PyTorch's own default
-    distributions: conv and linear weights and biases uniform in
-    ±1/sqrt(fan_in), embeddings standard normal. Layers are visited in
-    registration order."""
+    """Re-draw every parameter from ``generator``: conv and linear weights
+    and biases uniform in ±1/sqrt(fan_in) and embeddings standard normal
+    (PyTorch's defaults), LayerNorms ones and zeros, GRUs as the JAX package
+    draws them (:func:`init_gru`); a module with its own parameters to draw
+    (``draw_parameters(generator)``) draws them itself. Layers are visited in
+    registration order (a tied block once)."""
     with torch.no_grad():
         for layer in module.modules():
-            if isinstance(layer, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)):
+            if hasattr(layer, "draw_parameters"):
+                layer.draw_parameters(generator)
+            elif isinstance(layer, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)):
                 weight = layer.weight
                 fan_in = weight.shape[1] * math.prod(weight.shape[2:])
                 bound = 1.0 / math.sqrt(fan_in)
                 weight.uniform_(-bound, bound, generator=generator)
-                layer.bias.uniform_(-bound, bound, generator=generator)
+                if layer.bias is not None:
+                    layer.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(layer, nn.GRU):
+                init_gru(layer, generator)
             elif isinstance(layer, nn.Embedding):
                 layer.weight.normal_(generator=generator)
+            elif isinstance(layer, nn.LayerNorm):
+                layer.weight.fill_(1.0)
+                layer.bias.zero_()
+
+
+def init_gru(gru: nn.GRU, generator: Optional[torch.Generator]) -> None:
+    """flax's ``GRUCell`` initialisers, the JAX package's: each layer's
+    input weights LeCun normal (truncated at two deviations), each gate's
+    recurrent block orthogonal, biases zero. PyTorch's default (everything
+    uniform in ±1/sqrt(hidden)) leaves the perceiver learning gate above the
+    persistence baseline after its 16 epochs (PERF.md)."""
+    hidden = gru.hidden_size
+    with torch.no_grad():
+        for name, weight in gru.named_parameters():
+            if name.startswith("bias"):
+                weight.zero_()
+            elif name.startswith("weight_ih"):
+                std = 1.0 / math.sqrt(weight.shape[1]) / 0.87962566103423978
+                nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+            else:
+                for gate in range(3):  # r, z, n
+                    nn.init.orthogonal_(weight[gate * hidden : (gate + 1) * hidden], generator=generator)
 
 
 def checked_ids(ids: torch.Tensor, num_embeddings: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,3 +100,26 @@ def conv3d_tower(module: nn.Module, prefix: str, num_layers: int, x: torch.Tenso
     for i in range(num_layers):
         x = F.relu(getattr(module, f"{prefix}{i}")(x))
     return x
+
+
+class StackedGRU(nn.GRU):
+    """A ``num_layers``-deep ``nn.GRU`` over (B, T, F) sequences, batch
+    first: ``(outputs, h_n)`` with ``h_n`` the final hidden state of every
+    layer, so an encoder's state can seed a decoder (the JAX package's
+    ``layers.StackedGRU``, the reference's ``nn.GRU(num_layers=2)``)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2):
+        super().__init__(input_size, hidden_size, num_layers=num_layers, batch_first=True)
+
+
+class Conv3dMaxPool(nn.Module):
+    """``conv``: a 3×3×3 ``Conv3d`` padded by 1, then a 3×3×3 max-pool
+    padded by 1 with stride (1, 2, 2): T kept, H and W halved (rounded up).
+    (B, C, T, H, W) in and out."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv3d(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool3d(self.conv(x), 3, stride=(1, 2, 2), padding=1)

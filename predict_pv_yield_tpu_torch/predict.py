@@ -33,6 +33,7 @@ from predict_pv_yield_tpu_torch.data.preprocess import preprocess_batch
 from predict_pv_yield_tpu_torch.losses import WeightedLosses, mse_loss, nmae_loss
 from predict_pv_yield_tpu_torch.metrics import mae_each_forecast_horizon, mse_each_forecast_horizon
 from predict_pv_yield_tpu_torch.models import get_model
+from predict_pv_yield_tpu_torch.models.layers import init_parameters
 from predict_pv_yield_tpu_torch.utils import full_fp32, resolve_device
 
 
@@ -147,17 +148,24 @@ def load_model_config(path: str) -> Dict:
         return yaml.safe_load(fh)
 
 
-def build_model(model_name: str, model_config: Dict, checkpoint: Optional[str] = None, seed: int = 0):
+def build_model(model_name: str, model_config: Dict, checkpoint: Optional[str] = None, seed: int = 0,
+                configuration=None):
     """The model ``model_name`` with the hyperparameters ``model_config``
     (a model YAML as a dict; its ``_target_``, if any, must name the same
-    model), on the CPU in ``eval()`` mode. Its weights come from
-    ``checkpoint`` (loaded with ``strict=True``), else from ``seed``."""
+    model), on the CPU in ``eval()`` mode. Its data-dependent input widths
+    follow the dataset ``configuration`` where one is given
+    (``match_configuration``; the fake data of :func:`fake_loader` follows
+    the model). Its weights come from ``checkpoint`` (loaded with
+    ``strict=True``), else from ``seed``."""
     config = dict(model_config)
     model_cls = get_model(model_name)
     target = config.pop("_target_", None)
     if target is not None and get_model(target) is not model_cls:
         raise ValueError(f"the config's _target_ {target!r} is not the model {model_name!r}")
-    model = model_cls(**config, generator=torch.Generator().manual_seed(seed))
+    model = model_cls(**config)
+    if configuration is not None and hasattr(model, "match_configuration"):
+        model.match_configuration(configuration)
+    init_parameters(model, torch.Generator().manual_seed(seed))
     if checkpoint is not None:
         model.load_state_dict(load_lightning_checkpoint(checkpoint), strict=True)
     return model.eval()
@@ -215,7 +223,8 @@ def run(
 
 def main(argv=None) -> Dict:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--model", required=True, help="model-zoo name (conv3d_sat_nwp)")
+    parser.add_argument("--model", required=True,
+                        help="model-zoo name (conv3d_sat_nwp, perceiver, perceiver_nwp_sat, perceiver_conv3d_nwp_sat)")
     parser.add_argument("--model-config", required=True, help="model hyperparameter YAML")
     parser.add_argument("--checkpoint", help="reference Lightning .ckpt or port state_dict .pt")
     parser.add_argument("--n-batches", type=int, default=10)

@@ -101,9 +101,9 @@ def test_instantiate_builds_port_objects(tmp_cwd):
 @pytest.mark.parametrize("overrides,section,item", [
     (["model=conv3d"], ("model",), "M10"),
     (["model=conv3d_nwp"], ("model",), "M10"),
-    (["model=perceiver"], ("model",), "M11"),
-    (["model=perceiver_sat_nwp"], ("model",), "M11"),
-    (["model=perceiver_conv3d_sat_nwp"], ("model",), "M11"),
+    (["experiment=003_perceiver_rnn"], ("trainer",), "T1"),
+    (["experiment=perceiver_tp"], ("model",), "M14"),
+    (["experiment=perceiver_tp", "trainer.precision=32"], ("trainer",), "T9"),
     (["model=cnn_rnn"], ("model",), "M12"),
     (["model=cnn_concat_timesteps"], ("model",), "M12"),
     (["datamodule=zarr_stream", "datamodule.zarr_path=gs://bucket/satellite.zarr"], ("datamodule",), "M9"),

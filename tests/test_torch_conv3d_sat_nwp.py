@@ -191,11 +191,14 @@ def test_seqlens_match(history, forecast):
 
 
 def test_registry_resolves_yaml_targets():
+    from predict_pv_yield_tpu_torch.models import perceiver, perceiver_conv3d_nwp_sat, perceiver_nwp_sat
     from predict_pv_yield_tpu_torch.models.baseline import Model as Baseline
 
-    assert MODEL_REGISTRY == {"conv3d_sat_nwp": Model, "baseline": Baseline, "last_value": Baseline}
+    assert MODEL_REGISTRY == {"conv3d_sat_nwp": Model, "baseline": Baseline, "last_value": Baseline,
+                              "perceiver": perceiver.PerceiverModel, "perceiver_nwp_sat": perceiver_nwp_sat.Model,
+                              "perceiver_conv3d_nwp_sat": perceiver_conv3d_nwp_sat.Model}
     for name in ("conv3d_sat_nwp", "predict_pv_yield_tpu.models.conv3d_sat_nwp.Model",
                  "predict_pv_yield.models.conv3d.model_sat_nwp.Model"):
         assert get_model(name) is Model
     with pytest.raises(KeyError):
-        get_model("perceiver")
+        get_model("conv3d")

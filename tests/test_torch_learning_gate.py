@@ -8,7 +8,8 @@ persistence model).
 
 Also the fault the gate found: the model's ``fc3`` takes the width of the
 data's yield history (1 GSP here), as the JAX model's first-batch init
-does, not the reference's fixed 32 series.
+does, not the reference's fixed 32 series; and the same class of fault in
+``pv_fc1``, which takes min(PV systems, 128) series from the data.
 """
 
 import contextlib
@@ -20,17 +21,20 @@ import numpy as np
 import pytest
 import torch
 
+from predict_pv_yield_tpu.convert import convert_conv3d_sat_nwp
 from predict_pv_yield_tpu.data import synthetic as jsynthetic
 from predict_pv_yield_tpu.data.loader import ZarrStreamDataModule as JaxZarrStreamDataModule
 from predict_pv_yield_tpu.models.conv3d_sat_nwp import Model as JaxModel
 
 from predict_pv_yield_tpu_torch.config.composer import compose
+from predict_pv_yield_tpu_torch.config.dataset import Configuration
 from predict_pv_yield_tpu_torch.convert import conv3d_sat_nwp_from_flax
 from predict_pv_yield_tpu_torch.data import synthetic
 from predict_pv_yield_tpu_torch.data.loader import ZarrStreamDataModule
 from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
 from predict_pv_yield_tpu_torch.training.engine import Trainer
 from predict_pv_yield_tpu_torch.utils import full_fp32
+from tests.test_torch_conv3d_sat_nwp import BASE, CASES, _inputs, _jax_batch, _port_batch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -98,3 +102,39 @@ def test_fc3_takes_the_width_of_the_data(archive, tmp_cwd):
         ours = model.eval()(batch).numpy()
     theirs = np.asarray(jmodel.apply(variables, jax.tree_util.tree_map(jnp.asarray, jbatch)))
     np.testing.assert_allclose(ours, theirs, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_pv", [1, 200])
+def test_pv_fc1_takes_the_width_of_the_data(n_pv):
+    """pv_fc1 reads min(n_pv, 128) PV series (and fc3 all n_pv for a PV
+    target), as the JAX model's first-batch init sizes them; both through
+    ``match_configuration`` and through the converter."""
+    config = {**BASE, **CASES["pv_all"]}
+    jmodel = JaxModel(**config)
+    fields = _inputs(jmodel, seed=0)
+    rng = np.random.default_rng(1)
+    fields["pv"] = {"pv_yield": rng.uniform(size=(2, jmodel.seq_lens.seq_len_5, n_pv)).astype(np.float32),
+                    "pv_system_row_number": rng.integers(0, 940, size=(2, n_pv)).astype(np.int32)}
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0), _jax_batch(fields))["params"]
+    steps_5, steps_30 = jmodel.history_len_5 + 1, jmodel.history_len_30 + 1
+    assert shapes["pv_fc1"]["kernel"].shape == (min(n_pv, 128) * steps_5, 128)
+
+    configuration = Configuration()
+    configuration.input_data = configuration.input_data.set_all_to_defaults()
+    configuration.input_data.pv.n_pv_systems_per_example = n_pv
+    model = Model(**config, generator=torch.Generator().manual_seed(0))
+    model.match_configuration(configuration)
+    assert model.pv_fc1.in_features == min(n_pv, 128) * steps_5
+    assert model.fc3.in_features == shapes["fc3"]["kernel"].shape[0] == (
+        config["fc2_output_features"] + n_pv * steps_30 + 128 + 128 + config["embedding_dem"])
+
+    # the JAX model on the port's weights, and those weights back into a
+    # fresh port model: the converter takes both widths from the flax kernels
+    variables = convert_conv3d_sat_nwp(model.state_dict(), jmodel)
+    fresh = Model(**config)
+    fresh.load_state_dict(conv3d_sat_nwp_from_flax(variables, fresh), strict=True)
+    assert (fresh.pv_fc1.in_features, fresh.fc3.in_features) == (model.pv_fc1.in_features, model.fc3.in_features)
+    with torch.no_grad():
+        ours = fresh.eval()(_port_batch(fields)).numpy()
+    np.testing.assert_allclose(ours, np.asarray(jax.jit(jmodel.apply)(variables, _jax_batch(fields))),
+                               rtol=1e-4, atol=1e-4)
