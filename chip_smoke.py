@@ -1,6 +1,6 @@
 """Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast, the
-conv3d_sat_nwp serve and train paths, the data path that feeds them, and
-the perceiver family.
+conv3d_sat_nwp serve and train paths, the data path that feeds them, the
+perceiver family, and the rest of the single-device zoo with bf16.
 
     python3 chip_smoke.py
 
@@ -70,11 +70,30 @@ Phases (any failure exits non-zero):
      package's perceiver learning gate on the card (16 epochs, lr 1e-3, the
      best validation epoch < 0.85 × phase 8's persistence baseline on the
      same archive);
- 10. the ``kernels`` line, then the result line.
+ 10. the zoo and bf16: (a) each of ``configs/model/conv3d.yaml``,
+     ``conv3d_nwp.yaml``, ``cnn_concat_timesteps.yaml`` and ``cnn_rnn.yaml``
+     (literal copies below) at batch 32 in fp32 on fake data of its
+     geometry: card vs CPU at one example on the forecasts and on fc1's
+     input (≤ 1e-4 · max |y|), forward and step device ms against the fp32
+     bound from the layer shapes, ``predict`` and train examples/s, busy
+     shares, peak memory, one step at batch 1 card vs CPU (as 7 (a));
+     (b) the PRED-189 runbook's command (``weights/conv3d/readme.md``)
+     through the port's ``predict.main`` on a synthesized reference
+     ``.ckpt``; (c) conv3d_sat_nwp, perceiver.yaml and cnn_rnn at precision
+     16 beside their fp32 numbers (phases 7, 9, 10 (a)): card bf16 vs CPU
+     bf16 within 3 × the CPU's own bf16-vs-fp32 spread, forward and step
+     device ms against the dense bf16 bound, top kernels, examples/s, busy
+     share, peak memory, and what ``nn.GRU`` does under bf16 autocast;
+     (d) phase 8 (c)'s learning gate at ``trainer.precision=16``; (e)
+     ``train(config)`` on literals of the composed ``experiment=conv3d``,
+     ``conv3d_nwp``, ``001_cnn_concat``, ``002_cnn_rnn`` and
+     ``003_perceiver_rnn`` configs, each ``last`` checkpoint loaded back
+     bit for bit with fp32 parameters;
+ 11. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
-path (phases 3 and 4) and read just after; the serve, train, data and
-perceiver paths run no hand kernel (the JAX package computes them with XLA,
+path (phases 3 and 4) and read just after; the serve, train, data,
+perceiver and zoo paths run no hand kernel (the JAX package computes them with XLA,
 outside any Pallas kernel; attention is PyTorch's
 ``scaled_dot_product_attention``), and their phases check that ``sep_blur``
 launched 0 times.
@@ -92,13 +111,14 @@ import time
 import numpy as np
 import torch
 
-# (bytes/s, fp32 non-tensor flop/s), NVIDIA data sheets; the first name that
-# occurs in torch.cuda.get_device_name() wins
+# (bytes/s, fp32 non-tensor flop/s, bf16 dense tensor flop/s), NVIDIA data
+# sheets (dense rates: the sheets' bf16 figures with sparsity, halved); the
+# first name that occurs in torch.cuda.get_device_name() wins
 PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),  # SXM5
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),  # SXM5
+    ("H200", 4.8e12, 67e12, 989e12),
 )
 
 FRAMES, SIDE = 49, 256  # the headline super batch (tools/flow_bench.py:30-37)
@@ -136,6 +156,9 @@ SERVE_TOL = 1e-4  # card vs CPU forward, tests/test_convert.py:427
 PARITY_BATCH = 4  # (a): the CPU side of the one-step parity stays cheap
 STEP_LOSS_TOL, GRAD_REL_TOL, STEP_PARAM_TOL = 2e-6, 1e-4, 1e-3  # 1e-3 = 2·lr: Adam moves ~0 gradients by ±lr
 GRAD_SPREAD_FACTOR = 3  # card gradients vs CPU: ≤ 3 × the CPU's own fp32 spread (see _train_parity)
+#: a ReLU input within this fraction of its call's largest |input| of zero
+#: is a tie that fp32 rounding may decide either way (_relu_decisions)
+RELU_TIE = 1e-6
 TRAIN_BATCHES, TRAIN_UNIQUE, VAL_BATCHES, STEADY_STEPS = 24, 8, 4, 16
 ROUND_TRIP_TOL = 1e-6
 
@@ -214,15 +237,59 @@ PERCEIVER_TRAIN_CONFIG = {**TRAIN_CONFIG, "model": PERCEIVERS["perceiver"]}
 PERCEIVER_GATE_EPOCHS, PERCEIVER_GATE_LR = 16, 1e-3  # tests/test_learning_gate.py:107-119
 PERCEIVER_TRACED_CALLS = 3  # forwards and train steps per profiler trace
 
+#: phase 10: the rest of the zoo's model YAMLs as literals
+#: (tests/test_torch_experimental.py holds them equal to the files), by zoo name
+ZOO = {
+    "conv3d": {
+        "_target_": "predict_pv_yield_tpu.models.conv3d.Model", "include_pv_yield": True, "include_nwp": True,
+        "forecast_minutes": 120, "history_minutes": 30, "number_of_conv3d_layers": 6, "image_size_pixels": 24,
+        "number_sat_channels": 11, "conv3d_channels": 32, "fc1_output_features": 128, "fc2_output_features": 128,
+        "fc3_output_features": 64, "output_variable": "gsp_yield",
+    },
+    "conv3d_nwp": {
+        "_target_": "predict_pv_yield_tpu.models.conv3d_nwp.Model", "include_pv_or_gsp_yield_history": True,
+        "forecast_minutes": 120, "history_minutes": 30, "number_of_conv3d_layers": 6, "conv3d_channels": 32,
+        "fc1_output_features": 128, "fc2_output_features": 128, "fc3_output_features": 64, "number_nwp_channels": 1,
+    },
+    "cnn_concat_timesteps": {
+        "_target_": "predict_pv_yield_tpu.models.experimental.CNNConcatTimesteps", "history_minutes": 30,
+        "forecast_minutes": 60, "channels": 144, "embedding_dim": 16, "include_nwp": True,
+        "output_variable": "pv_yield",
+    },
+    "cnn_rnn": {
+        "_target_": "predict_pv_yield_tpu.models.experimental.CNNRNN", "history_minutes": 30, "forecast_minutes": 60,
+        "channels": 128, "last_conv_channels": 32, "embedding_dim": 16, "include_nwp": True,
+        "output_variable": "pv_yield",
+    },
+}
+#: (a): per model 4 unique train batches (each 6 times) and 2 validation
+#: batches; the first 4 serve, twice over
+ZOO_TRAIN_UNIQUE, ZOO_VAL = 4, 2
+#: (c): the cells run in bf16 beside their fp32 numbers (phases 7, 9, 10 (a))
+BF16_CELLS = {"conv3d_sat_nwp": CONV3D_SAT_NWP, "perceiver": PERCEIVERS["perceiver"], "cnn_rnn": ZOO["cnn_rnn"]}
+#: (c): card bf16 vs CPU bf16 within this many times the CPU's own
+#: bf16-vs-fp32 spread, as GRAD_SPREAD_FACTOR holds the fp32 gradients
+BF16_SPREAD_FACTOR = 3
+#: (e): the composed ``experiment=<name>`` + ``TRAIN_OVERRIDES[1:]`` configs
+#: as literals (tests/test_torch_experimental.py holds them equal)
+ZOO_TRAIN_CONFIGS = {
+    "conv3d": {**TRAIN_CONFIG, "model": ZOO["conv3d"]},
+    "conv3d_nwp": {**TRAIN_CONFIG, "model": ZOO["conv3d_nwp"]},
+    "001_cnn_concat": {**TRAIN_CONFIG, "model": ZOO["cnn_concat_timesteps"], "seed": 42},
+    "002_cnn_rnn": {**TRAIN_CONFIG, "model": ZOO["cnn_rnn"], "seed": 42},
+    "003_perceiver_rnn": {**TRAIN_CONFIG, "model": PERCEIVERS["perceiver"], "seed": 42,
+                          "trainer": {**TRAIN_CONFIG["trainer"], "precision": 16}},
+}
+
 
 def log(message: str) -> None:
     print(message, flush=True)
 
 
 def peaks(name: str):
-    for key, bandwidth, flops in PEAKS:
+    for key, bandwidth, flops, bf16_flops in PEAKS:
         if key in name:
-            return key, bandwidth, flops
+            return key, bandwidth, flops, bf16_flops
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
@@ -789,6 +856,33 @@ def _rel_errs(grads, reference):
     return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, reference)]
 
 
+def _relu_decisions(trainer, host, decide=None):
+    """``trainer.loss_and_grads(host)`` with each ``F.relu`` call's decisions
+    (input > 0) and ties recorded on the host → (metrics, grads, decisions,
+    ties): a tie is an input within ``RELU_TIE`` × the call's largest |input|
+    of zero, recorded as that fraction (−1 elsewhere). With ``decide``
+    (another run's decisions, call by call) the ReLUs keep those inputs
+    instead of their own positive ones."""
+    import torch.nn.functional as F
+
+    relu, decisions, ties = F.relu, [], []
+
+    def recording_relu(x, inplace=False):
+        positive = x > 0
+        keep = positive if decide is None else decide[len(decisions)].to(x.device)
+        decisions.append(positive.cpu())
+        fraction = x.abs() / x.abs().max().clamp_min(torch.finfo(x.dtype).tiny)
+        ties.append(torch.where(fraction <= RELU_TIE, fraction, -1.0).cpu())
+        return relu(x) if decide is None else x * keep
+
+    F.relu = recording_relu
+    try:
+        metrics, grads = trainer.loss_and_grads(host)
+    finally:
+        F.relu = relu
+    return metrics, grads, decisions, ties
+
+
 def _train_parity(device, make_model=None, tag="train"):
     """(a) One train step on the card and on the CPU, both from the seed-0
     weights, in full fp32; ``make_model`` builds the model (by default the
@@ -800,7 +894,14 @@ def _train_parity(device, make_model=None, tag="train"):
     and PyTorch's own kernels) differ that much on the same inputs
     (PERF.md, section 6). So the card's gradients are held to the CPU's within
     the larger of ``GRAD_REL_TOL`` and ``GRAD_SPREAD_FACTOR`` times that
-    spread, measured in the same run."""
+    spread, measured in the same run.
+
+    A ReLU input within fp32 rounding of zero (a tie) may round to either
+    side on the card and on the CPU, and the gradients of every layer below
+    it then differ by its contribution (PERF.md, PR 7). So the CPU's
+    gradients the card is held to are taken on the card's ReLU decisions
+    (:func:`_relu_decisions`), and every decision the two disagree on must
+    be a tie."""
     from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
     from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
     from predict_pv_yield_tpu_torch.training.engine import Trainer
@@ -815,23 +916,34 @@ def _train_parity(device, make_model=None, tag="train"):
     geometry = make_model()
     host = FakeDataset(model_configuration(geometry), length=1)[0].numeric()
     results = []
-    for where in ("cpu", device):
+    for on_card, where in ((True, device), (False, "cpu")):
         trainer = Trainer(device=where, profiler=None)
         trainer.setup(make_model())
-        metrics, grads = trainer.loss_and_grads(host.to(where))
-        if where == "cpu":
+        if not on_card:
+            metrics, grads, decisions, ties = _relu_decisions(trainer, host)
             torch.backends.mkldnn.enabled = False
             try:
                 _, native = trainer.loss_and_grads(host)
             finally:
                 torch.backends.mkldnn.enabled = True
+            # the reference: the CPU's gradients on the card's ReLU decisions, and its Adam step from them
+            own, grads = grads, _relu_decisions(trainer, host, decide=card_decisions)[1]
+        else:
+            metrics, grads, card_decisions, _ = _relu_decisions(trainer, host.to(where))
         trainer.apply_gradients(grads)
         results.append((float(metrics["NMAE"]), [g.cpu() for g in grads],
                         {k: v.cpu() for k, v in trainer._model.state_dict().items()}))
         del trainer, grads
-    (cpu_loss, cpu_grads, cpu_params), (card_loss, card_grads, card_params) = results
+    (card_loss, card_grads, card_params), (cpu_loss, cpu_grads, cpu_params) = results
+    flips = [a != b for a, b in zip(decisions, card_decisions)]
+    n_flips = sum(int(f.sum()) for f in flips)
+    n_ties = sum(int((t >= 0).sum()) for t in ties)
+    check(all(not (f & (t < 0)).any() for f, t in zip(flips, ties)),
+          "the card and the CPU decide a ReLU input that is not a tie differently")
+    flip_size = max((float(t[f].max()) for f, t in zip(flips, ties) if f.any()), default=0.0)
+    unaligned = max(_rel_errs(card_grads, own))
     loss_err = abs(card_loss - cpu_loss)
-    grad_errs, spread = _rel_errs(card_grads, cpu_grads), _rel_errs(native, cpu_grads)
+    grad_errs, spread = _rel_errs(card_grads, cpu_grads), _rel_errs(native, own)
     grad_tol = max(GRAD_REL_TOL, GRAD_SPREAD_FACTOR * max(spread))
     param_err = max(float((card_params[k] - cpu_params[k]).abs().max()) for k in cpu_params)
     over = sum(int(((card_params[k] - cpu_params[k]).abs() > 5e-5).sum()) for k in cpu_params)
@@ -839,7 +951,9 @@ def _train_parity(device, make_model=None, tag="train"):
     above = sum(err > GRAD_REL_TOL for err in grad_errs)
     log(f"[{tag}] (a) one step at batch {geometry.batch_size}, card vs CPU: NMAE {card_loss:.7f} vs {cpu_loss:.7f} "
         f"(|Δ| {loss_err:.3e}, limit {STEP_LOSS_TOL}); gradients max |Δ| / max |g| {max(grad_errs):.3e} "
-        f"({above} of {len(grad_errs)} tensors above {GRAD_REL_TOL}); the CPU's two fp32 implementations "
+        f"({above} of {len(grad_errs)} tensors above {GRAD_REL_TOL}) against the CPU's on the card's ReLU "
+        f"decisions ({n_flips} of the CPU's {n_ties} ties decided the other way, the largest at {flip_size:.2e} of "
+        f"its call's largest input; on its own decisions {unaligned:.3e}); the CPU's two fp32 implementations "
         f"differ by {max(spread):.3e} ({sum(e > GRAD_REL_TOL for e in spread)} tensors above {GRAD_REL_TOL}), "
         f"limit {grad_tol:.3e}; parameters after Adam max |Δ| {param_err:.3e} (limit {STEP_PARAM_TOL}), "
         f"{over} of {n_params:,} differ by more than 5e-5")
@@ -847,6 +961,7 @@ def _train_parity(device, make_model=None, tag="train"):
     check(max(grad_errs) <= grad_tol, "a card gradient disagrees with the CPU's")
     check(param_err <= STEP_PARAM_TOL, "the card's Adam step disagrees with the CPU's")
     return {"step_nmae_err": loss_err, "step_grad_rel_err": max(grad_errs), "cpu_grad_spread": max(spread),
+            "relu_flips": n_flips, "relu_flip_size": flip_size, "step_grad_rel_err_own_decisions": unaligned,
             "step_param_err": param_err}
 
 
@@ -943,12 +1058,15 @@ def phase_train(device, bandwidth, flops_peak):
             trainer = Trainer(max_epochs=1, device=device, logger=logger,
                               callbacks=[ModelCheckpoint(dirpath=f"{tmp}/ck"), stopper])
             trainer.setup(Model(**config))
+            torch.cuda.reset_peak_memory_stats(device)
             fit_seconds, steps, gaps, rate = _timed_fit(trainer, train_dataloaders=train_batches,
                                                         val_dataloaders=val_batches)
+            peak = torch.cuda.max_memory_allocated(device)
             check(trainer.global_step == TRAIN_BATCHES and steps == TRAIN_BATCHES, "train steps")
             log(f"[train] fit over {TRAIN_BATCHES}x32 train + {VAL_BATCHES}x32 validation batches (copies, "
                 f"checkpoints and CSVs included): {fit_seconds:.3f} s; steady pace of the last {STEADY_STEPS} steps "
-                f"{np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s")
+                f"{np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s; peak device memory "
+                f"{peak / 2**30:.3f} GiB")
             rows, results = _check_train_csvs(logger.log_dir, f"{tmp}/results_epoch_0.csv", TRAIN_BATCHES, VAL_BATCHES)
             log(f"[train] metrics.csv {rows} rows (finite per-step and *_epoch rows); results_epoch_0.csv "
                 f"{results} rows; {trainer.profiler.summary().splitlines()[1].strip()}")
@@ -1004,7 +1122,7 @@ def phase_train(device, bandwidth, flops_peak):
     check(blur.launches == 0, "the train path launched sep_blur")
     return {"train_step_ms": step_ms, "train_step_deterministic_ms": deterministic_ms,
             "train_bound_ms": bound_ms, "train_examples_per_s": rate,
-            "train_busy_share": busy, "train_fit_seconds": fit_seconds}
+            "train_busy_share": busy, "train_fit_seconds": fit_seconds, "train_peak_bytes": peak}
 
 
 def _stream_archive(root, seed=0):
@@ -1397,34 +1515,25 @@ def _perceiver_serve(device, name, config, batches, flops_peak):
     host = batches[0].numeric()
     batch_size = host.satellite.data.shape[0]
     few = host.map(lambda _, leaf: leaf[:PERCEIVER_PARITY_BATCH])  # the examples the CPU compares
-    # the encoder's output (fc1's input) of each forward, on the host: the
-    # head's ReLUs can hide an encoder fault from the forecasts
-    encoded = []
-    hook = model.perceiver.register_forward_hook(lambda module, args, out: encoded.append(out.detach().cpu()))
+    # the forecasts and the encoder's output (fc1's input): the head's ReLUs
+    # can hide an encoder fault from the forecasts
     start = time.perf_counter()
-    with torch.inference_mode(), full_fp32():
-        on_cpu = model(few)
-    cpu_seconds = time.perf_counter() - start
-    model.to(device)
+    readings = _cpu_parity(model, few, device)
+    readings["encoder"] = readings.pop("body")
+    parity_seconds = time.perf_counter() - start
     card_batch = host.to(device)
     with torch.inference_mode(), full_fp32():
         on_card = model(card_batch)
-        on_card_few = model(few.to(device))
-        backend = perceiver_core.sdpa_backend(device).name  # the serve path's: no autograd
-    hook.remove()
-    readings = {}
-    for label, cpu, card in (("forecasts", on_cpu, on_card_few.cpu()), ("encoder", encoded[0], encoded[-1])):
-        scale = float(cpu.abs().max())
-        readings[label] = (float((card - cpu).abs().max()), scale, tuple(cpu.shape))
+    backend = perceiver_core.sdpa_backend(device).name  # the serve path's: no autograd
     log(f"[perceiver] {name}: {n_params:,} parameters, depth {model.perceiver.depth}; satellite "
         f"{tuple(host.satellite.data.shape)}, NWP {tuple(host.nwp.data.shape)}; card "
         f"({backend} attention) vs CPU at {PERCEIVER_PARITY_BATCH} example(s): "
-        + "; ".join(f"{label} {shape} max abs diff {err:.3e}, limit {SERVE_TOL} x max |y| {scale:.4f}"
-                    for label, (err, scale, shape) in readings.items())
-        + f" (the CPU forward {cpu_seconds:.2f} s)")
+        + "; ".join(f"{label} max abs diff {err:.3e}, limit {SERVE_TOL} x max |y| {scale:.4f}"
+                    for label, (err, scale) in readings.items())
+        + f" ({parity_seconds:.2f} s)")
     check(tuple(on_card.shape) == (batch_size, model.forecast_len) and bool(torch.isfinite(on_card).all()),
           "forward shape or NaN")
-    for label, (err, scale, _) in readings.items():
+    for label, (err, scale) in readings.items():
         check(err <= SERVE_TOL * scale, f"card {label} disagree with the CPU's")
 
     # a perceiver_pytorch-layout Lightning checkpoint, loaded with strict=True
@@ -1453,22 +1562,8 @@ def _perceiver_serve(device, name, config, batches, flops_peak):
         f"time per batch of {batch_size}: {forward_ms:.4f} ms; fp32 bound {bound_ms:.4f} ms "
         f"({flops / 1e9:.1f} GFLOP), {bound_ms / forward_ms:.1%} of it; attention kernels: "
         + ("; ".join(sorted(set(k[:90] for k in attention))) or "none named"))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[perceiver]   {e.self_device_time_total / PERCEIVER_TRACED_CALLS / 1e3:8.4f} ms  "
-            f"x{e.count // PERCEIVER_TRACED_CALLS:<3d} {e.key[:110]}")
-    def serve_batches():
-        serve.predict(model, batches, device)
-
-    serve_batches()
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        serve_batches()
-        times.append(time.perf_counter() - start)
-    seconds = float(np.median(times))
-    rate = len(batches) * batch_size / seconds
-    busy, traced = _busy_share(serve_batches)
+    _top(events, "perceiver", n=8)
+    rate, busy, seconds, traced = _serve_numbers(model, batches, device)
     log(f"[perceiver] {name} predict over {len(batches)} host batches of {batch_size}: "
         f"{seconds / len(batches) * 1e3:.4f} ms per batch, {rate:.2f} examples/s; device busy {busy:.1%} "
         f"of a traced call ({traced * 1e3:.3f} ms)")
@@ -1483,7 +1578,6 @@ def _perceiver_train(device, name, config, unique, bandwidth, flops_peak):
     then validation): one step card vs CPU, the step's device time against
     its bound, a timed fit, its busy share and peak memory."""
     from predict_pv_yield_tpu_torch.models import get_model
-    from predict_pv_yield_tpu_torch.training.engine import Trainer
 
     cls = get_model(name)
     kwargs = {k: v for k, v in config.items() if k != "_target_"}
@@ -1493,42 +1587,24 @@ def _perceiver_train(device, name, config, unique, bandwidth, flops_peak):
 
     batch_size = config["batch_size"]
     train_batches = unique[:TRAIN_UNIQUE] * (TRAIN_BATCHES // TRAIN_UNIQUE)
-    val_batches = unique[TRAIN_UNIQUE:]
 
-    profiled = Trainer(device=device, profiler=None)
-    profiled.setup(cls(**kwargs))
-    card_batch = unique[0].numeric().to(device)
-    events = _device_events(lambda: profiled.train_step(card_batch), calls=PERCEIVER_TRACED_CALLS)
-    step_ms = sum(e.self_device_time_total for e in events) / PERCEIVER_TRACED_CALLS / 1e3
-    flops = 3 * 2 * _perceiver_macs(profiled._model) * batch_size
-    adam_bytes = 7 * 4 * sum(p.numel() for p in profiled._model.parameters())
+    events, step_ms, trained = _step_events(device, lambda: cls(**kwargs), unique[0].numeric().to(device))
+    flops = 3 * 2 * _perceiver_macs(trained) * batch_size
+    adam_bytes = 7 * 4 * sum(p.numel() for p in trained.parameters())
     bound_ms = flops / flops_peak * 1e3 + adam_bytes / bandwidth * 1e3
+    del trained
     log(f"[perceiver] {name} train step device time per batch of {batch_size}: {step_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP at fp32 + Adam {adam_bytes / 1e9:.4f} GB), "
         f"{bound_ms / step_ms:.1%} of it")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[perceiver]   {e.self_device_time_total / PERCEIVER_TRACED_CALLS / 1e3:8.4f} ms  "
-            f"x{e.count // PERCEIVER_TRACED_CALLS:<3d} {e.key[:110]}")
-    del profiled, card_batch
+    _top(events, "perceiver", n=8)
     traced_seconds = time.perf_counter() - start - parity_seconds
 
-    trainer = Trainer(max_epochs=1, device=device)
-    trainer.setup(cls(**kwargs))
-    torch.cuda.reset_peak_memory_stats(device)
-    fit_seconds, steps, gaps, rate = _timed_fit(trainer, batch_size=batch_size, train_dataloaders=train_batches,
-                                                val_dataloaders=val_batches)
-    peak = torch.cuda.max_memory_allocated(device)
-    check(steps == TRAIN_BATCHES and np.isfinite(trainer.callback_metrics["NMAE/Train_epoch"]), "fit steps or NaN")
-    del trainer
-    traced = Trainer(max_epochs=1, device=device, profiler=None)
-    traced.setup(cls(**kwargs))
-    busy, wall = _busy_share(lambda: traced.fit(traced._model, train_dataloaders=train_batches[:8]), warm=False)
-    del traced
+    rate, gap, peak, busy = _fit_numbers(device, lambda: cls(**kwargs), train_batches, unique[TRAIN_UNIQUE:],
+                                         batch_size)
     log(f"[perceiver] {name} fit over {TRAIN_BATCHES}x{batch_size} train + {VAL_BATCHES}x{batch_size} validation "
-        f"batches: {fit_seconds:.3f} s; steady pace of the last {STEADY_STEPS} steps {np.median(gaps):.4f} ms per "
-        f"step (median), {rate:.2f} train examples/s; peak device memory {peak / 2**30:.3f} GiB; device busy "
-        f"{busy:.1%} of a traced 8-step fit ({wall * 1e3:.3f} ms); the one-step parity took "
-        f"{parity_seconds:.2f} s, the step's trace {traced_seconds:.2f} s")
+        f"batches: steady pace of the last {STEADY_STEPS} steps {gap:.4f} ms per step (median), {rate:.2f} train "
+        f"examples/s; peak device memory {peak / 2**30:.3f} GiB; device busy {busy:.1%} of a traced 8-step fit; "
+        f"the one-step parity took {parity_seconds:.2f} s, the step's trace {traced_seconds:.2f} s")
     return {**parity, "train_step_ms": step_ms, "train_bound_ms": bound_ms, "train_examples_per_s": rate,
             "train_busy_share": busy, "train_peak_bytes": peak}
 
@@ -1633,6 +1709,436 @@ def phase_perceiver(device, bandwidth, flops_peak, baseline_nmae):
     return results
 
 
+def _layer_macs(model, batch) -> int:
+    """Multiply-accumulates of one forward of ``model`` on ``batch`` (run
+    here, without autograd), from the shapes its layers see: each conv's
+    output elements × its input channels × kernel volume, each linear's
+    rows × its weights, each GRU's steps × its input and recurrent weights."""
+    from torch import nn
+
+    macs = []
+
+    def count(module, args, out):
+        if isinstance(module, nn.GRU):
+            steps = args[0].shape[0] * args[0].shape[1]
+            macs.append(steps * sum(p.numel() for n, p in module.named_parameters() if n.startswith("weight")))
+        elif isinstance(module, nn.Linear):
+            macs.append(out.numel() // module.out_features * module.weight.numel())
+        else:
+            macs.append(out.numel() // module.out_channels * module.weight.numel())
+
+    layers = (nn.Conv2d, nn.Conv3d, nn.Linear, nn.GRU)
+    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, layers)]
+    try:
+        with torch.inference_mode():
+            model(batch)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return sum(macs)
+
+
+def _head_input(model):
+    """The model's first dense layer after its body: the tensor it takes is
+    the body's output (the CNN's, the tower's, the encoder's)."""
+    return model.nwp_fc1 if hasattr(model, "nwp_fc1") else model.fc1
+
+
+def _forward_with_body(model, batch, device, bf16=False):
+    """(forecasts, the body's output), on the host as fp32, of one forward
+    of ``model`` on ``device`` in full fp32 or bf16 autocast."""
+    from predict_pv_yield_tpu_torch.utils import full_fp32
+
+    caught = []
+    hook = _head_input(model).register_forward_pre_hook(lambda module, args: caught.append(args[0].detach()))
+    model.compute_dtype = torch.bfloat16 if bf16 else None
+    try:
+        with torch.inference_mode(), full_fp32(), model.compute_precision(device):
+            out = model(batch.to(device))
+    finally:
+        hook.remove()
+        model.compute_dtype = None
+    return out.float().cpu(), caught[0].float().cpu()
+
+
+def _cpu_parity(model, few, device):
+    """(a) One example forward on the card against the CPU, forecasts and
+    the body's output, in full fp32 → readings {label: (max |Δ|, max |y|)}."""
+    on_cpu = _forward_with_body(model.cpu(), few, torch.device("cpu"))
+    on_card = _forward_with_body(model.to(device), few, device)
+    return {label: (float((card - cpu).abs().max()), float(cpu.abs().max()))
+            for label, cpu, card in zip(("forecasts", "body"), on_cpu, on_card)}
+
+
+def _fit_numbers(device, make_model, train_batches, val_batches, batch_size, precision=32):
+    """A timed ``Trainer.fit`` of ``train_batches`` and ``val_batches`` and a
+    traced fit of the first 8 train batches → (steady examples/s, the median
+    ms between step ends, peak device memory, busy share)."""
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    trainer = Trainer(max_epochs=1, device=device, precision=precision, profiler=None)
+    trainer.setup(make_model())
+    torch.cuda.reset_peak_memory_stats(device)
+    _, steps, gaps, rate = _timed_fit(trainer, batch_size=batch_size, train_dataloaders=train_batches,
+                                      val_dataloaders=val_batches)
+    peak = torch.cuda.max_memory_allocated(device)
+    check(steps == len(train_batches) and np.isfinite(trainer.callback_metrics["NMAE/Train_epoch"])
+          and np.isfinite(trainer.callback_metrics["NMAE/Validation_epoch"]), "fit steps or NaN")
+    del trainer
+    traced = Trainer(max_epochs=1, device=device, precision=precision, profiler=None)
+    traced.setup(make_model())
+    busy, _ = _busy_share(lambda: traced.fit(traced._model, train_dataloaders=train_batches[:8]), warm=False)
+    del traced
+    return rate, float(np.median(gaps)), peak, busy
+
+
+def _zoo_fit(device, make_model, unique, batch_size, precision=32):
+    """:func:`_fit_numbers` of phase 10's 24 + 2 batches (the 4 unique train
+    batches 6 times)."""
+    train_batches = unique[:ZOO_TRAIN_UNIQUE] * (TRAIN_BATCHES // ZOO_TRAIN_UNIQUE)
+    return _fit_numbers(device, make_model, train_batches, unique[ZOO_TRAIN_UNIQUE:], batch_size, precision)
+
+
+def _serve_numbers(model, batches, device, runs=3):
+    """``predict`` over ``batches``: (examples/s of the median of ``runs``
+    warm calls, the busy share of a traced call, wall seconds per call)."""
+    from predict_pv_yield_tpu_torch import predict as serve
+
+    def serve_batches():
+        serve.predict(model, batches, device)
+
+    serve_batches()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        serve_batches()
+        times.append(time.perf_counter() - start)
+    seconds = float(np.median(times))
+    busy, traced = _busy_share(serve_batches)
+    batch_size = batches[0].satellite.data.shape[0]
+    return len(batches) * batch_size / seconds, busy, seconds, traced
+
+
+def _step_events(device, make_model, batch, precision=32):
+    """The train step's per-kernel device records over
+    ``PERCEIVER_TRACED_CALLS`` steps, its ms per step, and the model."""
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    profiled = Trainer(device=device, profiler=None, precision=precision)
+    profiled.setup(make_model())
+    events = _device_events(lambda: profiled.train_step(batch), calls=PERCEIVER_TRACED_CALLS)
+    return events, sum(e.self_device_time_total for e in events) / PERCEIVER_TRACED_CALLS / 1e3, profiled._model
+
+
+def _top(events, tag, n=6):
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:n]:
+        log(f"[{tag}]   {e.self_device_time_total / PERCEIVER_TRACED_CALLS / 1e3:8.4f} ms  "
+            f"x{e.count // PERCEIVER_TRACED_CALLS:<3d} {e.key[:110]}")
+
+
+def _zoo_model(device, name, config, bandwidth, flops_peak):
+    """Phase 10 (a) for one model at the full width of its YAML, batch 32,
+    fp32: card vs CPU, forward and step device ms against the bound,
+    ``predict`` and train examples/s, busy shares, peak memory."""
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.models import get_model
+    from predict_pv_yield_tpu_torch.utils import full_fp32
+
+    began = time.perf_counter()
+    cls, kwargs = get_model(name), {k: v for k, v in config.items() if k != "_target_"}
+    model = serve.build_model(name, config, seed=0)
+    unique = list(serve.fake_loader(model, ZOO_TRAIN_UNIQUE + ZOO_VAL))
+    host = unique[0].numeric()
+    batch_size = host.satellite.data.shape[0]
+    few = host.map(lambda _, leaf: leaf[:1])
+    macs = _layer_macs(model, few)  # one example
+    readings = _cpu_parity(model, few, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[zoo] {name}: {n_params:,} parameters; satellite {tuple(host.satellite.data.shape)}, NWP "
+        f"{tuple(host.nwp.data.shape)}; card vs CPU at 1 example: "
+        + "; ".join(f"{label} max abs diff {err:.3e}, limit {SERVE_TOL} x max |y| {scale:.4f}"
+                    for label, (err, scale) in readings.items()))
+    for label, (err, scale) in readings.items():
+        check(err <= SERVE_TOL * scale, f"{name}: card {label} disagree with the CPU's")
+
+    card_batch = host.to(device)
+
+    def forward():
+        with torch.inference_mode(), full_fp32():
+            model(card_batch)
+
+    events = _device_events(forward, calls=PERCEIVER_TRACED_CALLS)
+    forward_ms = sum(e.self_device_time_total for e in events) / PERCEIVER_TRACED_CALLS / 1e3
+    flops = 2 * macs * batch_size
+    bound_ms = flops / flops_peak * 1e3
+    log(f"[zoo] {name} forward device time per batch of {batch_size}: {forward_ms:.4f} ms; fp32 bound "
+        f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP), {bound_ms / forward_ms:.1%} of it")
+    _top(events, "zoo", n=4)
+    served = unique[:ZOO_TRAIN_UNIQUE] * 2
+    serve_rate, serve_busy, _, _ = _serve_numbers(model, served, device)
+    log(f"[zoo] {name} predict over {len(served)} host batches of {batch_size}: {serve_rate:.2f} examples/s; "
+        f"device busy {serve_busy:.1%}")
+    del model, card_batch
+
+    parity = _train_parity(device, lambda: cls(**{**kwargs, "batch_size": 1}), "zoo")
+    events, step_ms, trained = _step_events(device, lambda: cls(**kwargs), unique[0].numeric().to(device))
+    adam_bytes = 7 * 4 * sum(p.numel() for p in trained.parameters())
+    step_bound_ms = 3 * flops / flops_peak * 1e3 + adam_bytes / bandwidth * 1e3
+    del trained
+    log(f"[zoo] {name} train step device time per batch of {batch_size}: {step_ms:.4f} ms; bound "
+        f"{step_bound_ms:.4f} ms ({3 * flops / 1e9:.1f} GFLOP at fp32 + Adam {adam_bytes / 1e9:.4f} GB), "
+        f"{step_bound_ms / step_ms:.1%} of it")
+    _top(events, "zoo", n=4)
+    rate, gap, peak, busy = _zoo_fit(device, lambda: cls(**kwargs), unique, batch_size)
+    log(f"[zoo] {name} fit over {TRAIN_BATCHES}x{batch_size} + {ZOO_VAL}x{batch_size} batches: steady "
+        f"{gap:.4f} ms per step (median), {rate:.2f} train examples/s; peak device memory {peak / 2**30:.3f} GiB; "
+        f"device busy {busy:.1%} of a traced 8-step fit; {time.perf_counter() - began:.2f} s")
+    torch.cuda.empty_cache()
+    return {**parity, "forward_err": readings["forecasts"][0], "body_err": readings["body"][0],
+            "forward_ms": forward_ms, "forward_bound_ms": bound_ms, "serve_examples_per_s": serve_rate,
+            "serve_busy_share": serve_busy, "train_step_ms": step_ms, "train_bound_ms": step_bound_ms,
+            "train_examples_per_s": rate, "train_busy_share": busy, "train_peak_bytes": peak}
+
+
+def _runbook_command():
+    """The predict command of ``weights/conv3d/readme.md``, verbatim."""
+    import os
+    import shlex
+
+    with open(os.path.join("weights", "conv3d", "readme.md")) as fh:
+        found = re.search(r"```\n(python tools/predict\.py.*?)```", fh.read(), re.S)
+    check(found is not None, "the runbook no longer documents the predict command")
+    return shlex.split(found.group(1).replace("\\\n", " "))
+
+
+def _runbook(device):
+    """Phase 10 (b): the PRED-189 runbook's command through the port's
+    predict entry point on the card, on a Lightning ``.ckpt`` in the
+    reference's layout at the PRED-189 widths (seeded weights)."""
+    import contextlib
+    import csv
+    import io
+    import math
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch import predict as serve
+
+    command = _runbook_command()
+    check(command[:2] == ["python", "tools/predict.py"], f"runbook command {command[:2]}")
+    model = serve.build_model("conv3d", ZOO["conv3d"], seed=189)
+    check(list(model.state_dict())[:3] == ["sat_conv0.weight", "sat_conv0.bias", "conv3d_1.weight"],
+          "the reference's names")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, out = os.path.join(tmp, "PRED-189.ckpt"), os.path.join(tmp, "forecasts.csv")
+        torch.save({"state_dict": {f"model.{k}": v for k, v in model.state_dict().items()},
+                    "hyper_parameters": dict(ZOO["conv3d"]), "epoch": 10}, ckpt)
+        argv = command[2:]
+        argv[argv.index("path/to/PRED-189.ckpt")] = ckpt
+        argv[argv.index("forecasts.csv")] = out
+        printed = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = serve.main(argv + ["--device", str(device)])
+        seconds = time.perf_counter() - start
+        with open(out, newline="") as fh:
+            rows = list(csv.reader(fh))
+    n_batches = int(argv[argv.index("--n-batches") + 1])
+    check(len(rows) - 1 == n_batches * 32 * 4 and all(math.isfinite(float(r[3])) for r in rows[1:]),
+          f"{len(rows) - 1} forecast rows")
+    check(result["nmae"] is not None and math.isfinite(result["nmae"]) and "NMAE: " in printed.getvalue(),
+          "no NMAE")
+    log(f"[zoo] (b) the PRED-189 runbook through the port on the card: python -m predict_pv_yield_tpu_torch.predict "
+        f"{' '.join(command[2:])} --device {device} (checkpoint synthesized from seed 189): {len(rows) - 1} "
+        f"forecasts, NMAE {result['nmae']:.6f}; {seconds:.2f} s")
+    return {"runbook_nmae": result["nmae"]}
+
+
+def _gru_under_autocast(device):
+    """Whether cuDNN's GRU runs under bf16 autocast: what ``nn.GRU`` gives
+    for fp32 and for bf16 inputs (the port casts to its fp32 weights)."""
+    gru = torch.nn.GRU(8, 16, num_layers=2, batch_first=True).to(device)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(4, 5, 8, device=device, dtype=dtype)
+        try:
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                results[str(dtype)] = str(gru(x)[0].dtype)
+        except RuntimeError as error:
+            results[str(dtype)] = f"raises: {str(error).splitlines()[0][:80]}"
+    log("[zoo] (c) nn.GRU under bf16 autocast: " + "; ".join(f"{k} input -> {v}" for k, v in results.items()))
+    return results
+
+
+def _bf16_cell(device, name, config, fp32, bandwidth, bf16_peak, flops_peak):
+    """Phase 10 (c) for one cell: card bf16 vs CPU bf16 at one example
+    (within ``BF16_SPREAD_FACTOR`` × the CPU's own bf16-vs-fp32 spread, on
+    the forecasts and the body's output); bf16 forward and train step device
+    ms against the bf16 bound, top kernels, train examples/s, busy share and
+    peak memory, beside ``fp32``'s numbers."""
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.models import get_model
+
+    began = time.perf_counter()
+    cls, kwargs = get_model(name), {k: v for k, v in config.items() if k != "_target_"}
+    model = serve.build_model(name, config, seed=0)
+    unique = list(serve.fake_loader(model, ZOO_TRAIN_UNIQUE + ZOO_VAL))
+    host = unique[0].numeric()
+    batch_size = host.satellite.data.shape[0]
+    few = host.map(lambda _, leaf: leaf[:1])
+    macs = _perceiver_macs(model) if hasattr(model, "perceiver") else _layer_macs(model, few)
+    cpu = torch.device("cpu")
+    exact = _forward_with_body(model, few, cpu)
+    narrow = _forward_with_body(model, few, cpu, bf16=True)
+    card = _forward_with_body(model.to(device), few, device, bf16=True)
+    readings = {}
+    for label, a, b, c in zip(("forecasts", "body"), exact, narrow, card):
+        spread, err = float((b - a).abs().max()), float((c - b).abs().max())
+        readings[label] = (err, spread)
+        check(spread > 0, f"{name}: the CPU's bf16 {label} equal its fp32 ones")
+        check(err <= BF16_SPREAD_FACTOR * spread, f"{name}: card bf16 {label} disagree with the CPU's")
+    log(f"[bf16] {name}: card bf16 vs CPU bf16 at 1 example: "
+        + "; ".join(f"{label} max abs diff {err:.3e} (the CPU's bf16 vs fp32 {spread:.3e}, limit "
+                    f"{BF16_SPREAD_FACTOR} x)" for label, (err, spread) in readings.items()))
+
+    card_batch = host.to(device)
+    model.compute_dtype = torch.bfloat16
+
+    def forward():
+        with torch.inference_mode(), model.compute_precision(device):
+            model(card_batch)
+
+    events = _device_events(forward, calls=PERCEIVER_TRACED_CALLS)
+    forward_ms = sum(e.self_device_time_total for e in events) / PERCEIVER_TRACED_CALLS / 1e3
+    flops = 2 * macs * batch_size
+    bound_ms = flops / bf16_peak * 1e3
+    log(f"[bf16] {name} forward device time per batch of {batch_size}: {forward_ms:.4f} ms (fp32 "
+        f"{fp32['forward_ms']:.4f} ms); bf16 bound {bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP at "
+        f"{bf16_peak / 1e12:.0f} TFLOP/s), {bound_ms / forward_ms:.1%} of it")
+    _top(events, "bf16")
+    del model, card_batch
+
+    events, step_ms, trained = _step_events(device, lambda: cls(**kwargs), unique[0].numeric().to(device), 16)
+    check(all(p.dtype == torch.float32 for p in trained.parameters()), "bf16 training changed a parameter's dtype")
+    adam_bytes = 7 * 4 * sum(p.numel() for p in trained.parameters())
+    step_bound_ms = 3 * flops / bf16_peak * 1e3 + adam_bytes / bandwidth * 1e3
+    del trained
+    log(f"[bf16] {name} train step device time per batch of {batch_size}: {step_ms:.4f} ms (fp32 "
+        f"{fp32['train_step_ms']:.4f} ms, {fp32['train_step_ms'] / step_ms:.2f}x); bf16 bound {step_bound_ms:.4f} ms "
+        f"(fp32 bound {3 * flops / flops_peak * 1e3 + adam_bytes / bandwidth * 1e3:.4f} ms), "
+        f"{step_bound_ms / step_ms:.1%} of it")
+    _top(events, "bf16")
+    rate, gap, peak, busy = _zoo_fit(device, lambda: cls(**kwargs), unique, batch_size, precision=16)
+    fp32_peak = fp32.get("train_peak_bytes")
+    log(f"[bf16] {name} fit at precision 16: steady {gap:.4f} ms per step, {rate:.2f} train examples/s (fp32 "
+        f"{fp32['train_examples_per_s']:.2f}); peak device memory {peak / 2**30:.3f} GiB (fp32 "
+        + (f"{fp32_peak / 2**30:.3f} GiB" if fp32_peak else "not measured")
+        + f"); device busy {busy:.1%} (fp32 {fp32['train_busy_share']:.1%}); {time.perf_counter() - began:.2f} s")
+    torch.cuda.empty_cache()
+    return {"forward_err": readings["forecasts"][0], "forward_spread": readings["forecasts"][1],
+            "body_err": readings["body"][0], "body_spread": readings["body"][1], "forward_ms": forward_ms,
+            "forward_bound_ms": bound_ms, "train_step_ms": step_ms, "train_bound_ms": step_bound_ms,
+            "train_examples_per_s": rate, "train_busy_share": busy, "train_peak_bytes": peak}
+
+
+def _bf16_gate(baseline):
+    """Phase 10 (d): phase 8 (c)'s conv3d learning gate once more at
+    ``trainer.precision=16``, against the same persistence ``baseline``."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.data import synthetic
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        archive = synthetic.make_learnable_archive(os.path.join(tmp, "learnable"), n_frames=288, px=24, n_gsp=4,
+                                                   seed=0, with_nwp=True)
+        workdir = os.path.join(tmp, "gate_bf16")
+        os.makedirs(workdir)
+        overrides = synthetic.CONV3D_GATE_OVERRIDES + ["trainer.max_epochs=4", "+trainer.precision=16"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            trained = synthetic.run_learnable(archive, overrides, workdir=workdir)
+    log(f"[bf16] (d) conv3d learning gate at precision 16: trained {synthetic.GATE_METRIC} {trained:.6f}, "
+        f"persistence baseline {baseline:.6f}, ratio {trained / baseline:.4f} (limit {GATE_MARGIN}); "
+        f"{time.perf_counter() - start:.2f} s")
+    check(trained < GATE_MARGIN * baseline, "the bf16-trained model does not beat persistence")
+    return {"bf16_trained_nmae": trained}
+
+
+def _zoo_pipelines(device):
+    """Phase 10 (e): ``train(config)`` on each literal composed experiment
+    config (fake data in the model's geometry, 2 train + 1 validation
+    batches): a finite metric, and the ``last`` checkpoint loaded into a
+    fresh trainer bit for bit, its parameters fp32."""
+    import copy
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.config.instantiate import instantiate
+    from predict_pv_yield_tpu_torch.data.fake import model_configuration
+    from predict_pv_yield_tpu_torch.training.callbacks import load_state
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+    from predict_pv_yield_tpu_torch.training.pipeline import train
+
+    cwd = os.getcwd()
+    results = {}
+    for experiment, config in ZOO_TRAIN_CONFIGS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                run_config = copy.deepcopy(config)
+                datamodule = instantiate(run_config["datamodule"])
+                model = instantiate(run_config["model"])
+                datamodule.configuration = model_configuration(model)  # batches in the model's geometry
+                start = time.perf_counter()
+                metric = train(run_config, datamodule=datamodule)
+                seconds = time.perf_counter() - start
+                check(metric is not None and np.isfinite(metric), f"{experiment}: optimized_metric {metric}")
+                saved = load_state("checkpoints/last")
+                fresh = Trainer(device=device, profiler=None, resume_from_checkpoint="checkpoints/last",
+                                precision=run_config["trainer"].get("precision", 32))
+                fresh.setup(instantiate(run_config["model"]))
+                loaded = fresh.state["model"]
+                check(all(torch.equal(saved["model"][k], v.cpu()) for k, v in loaded.items()) and
+                      saved["model"].keys() == loaded.keys(), f"{experiment}: the `last` round trip")
+                check(all(v.dtype == torch.float32 for v in loaded.values()), f"{experiment}: a parameter not fp32")
+                compute = fresh._model.compute_dtype
+                del fresh
+            finally:
+                os.chdir(cwd)
+        log(f"[zoo] (e) train(config) of experiment={experiment} {' '.join(TRAIN_OVERRIDES[1:])}: "
+            f"{config['optimized_metric']} {metric:.6f}; `last` round trip bit-equal, {len(loaded)} tensors fp32, "
+            f"compute {compute or 'fp32'}; {seconds:.2f} s")
+        results[experiment] = metric
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_zoo(device, bandwidth, flops_peak, bf16_peak, serve, trained, perceivers, baseline_nmae):
+    """Phase 10: the rest of the single-device zoo at the widths of its
+    YAMLs, the PRED-189 runbook, bf16 beside fp32, the bf16 learning gate
+    and ``train(config)`` of the zoo's experiments."""
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    blur.launches = 0
+    start = time.perf_counter()
+    results = {name: _zoo_model(device, name, config, bandwidth, flops_peak) for name, config in ZOO.items()}
+    results.update(_runbook(device))
+    results["gru_under_autocast"] = _gru_under_autocast(device)
+    fp32 = {"conv3d_sat_nwp": {**trained, "forward_ms": serve["serve_forward_ms"]},
+            "perceiver": perceivers["perceiver"], "cnn_rnn": results["cnn_rnn"]}
+    results["bf16"] = {name: _bf16_cell(device, name, config, fp32[name], bandwidth, bf16_peak, flops_peak)
+                       for name, config in BF16_CELLS.items()}
+    results.update(_bf16_gate(baseline_nmae))
+    results["pipelines"] = _zoo_pipelines(device)
+    check(blur.launches == 0, "the zoo launched sep_blur")
+    log(f"[zoo] phase 10: {time.perf_counter() - start:.2f} s")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -1648,9 +2154,10 @@ def main() -> int:
     log(card)
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    peak_name, bandwidth, flops_peak = peaks(name)
+    peak_name, bandwidth, flops_peak, bf16_peak = peaks(name)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {name}; peaks of {peak_name}: "
-        f"{bandwidth / 1e12:.2f} TB/s, {flops_peak / 1e12:.0f} TFLOP/s fp32; TF32 allowed: "
+        f"{bandwidth / 1e12:.2f} TB/s, {flops_peak / 1e12:.0f} TFLOP/s fp32, {bf16_peak / 1e12:.0f} TFLOP/s "
+        f"dense bf16; TF32 allowed: "
         f"matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}")
 
     phase_build()
@@ -1662,6 +2169,7 @@ def main() -> int:
     trained = phase_train(device, bandwidth, flops_peak)
     data = phase_data(device, trained)
     perceivers = phase_perceiver(device, bandwidth, flops_peak, data["baseline_nmae"])
+    zoo = phase_zoo(device, bandwidth, flops_peak, bf16_peak, serve, trained, perceivers, data["baseline_nmae"])
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -1682,7 +2190,7 @@ def main() -> int:
         "call_ms": headline["call_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
-                    **trained, **data, "perceivers": perceivers}))
+                    **trained, **data, "perceivers": perceivers, "zoo": zoo}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

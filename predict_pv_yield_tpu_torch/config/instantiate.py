@@ -39,18 +39,10 @@ TARGET_ALIASES: Dict[str, Callable] = {
     "predict_pv_yield_tpu.training.loggers.JSONLLogger": JSONLLogger,
 }
 
-_MODELS_LATER = "M10: conv3d, conv3d_nwp"
-_EXPERIMENTS = "M12: experiments 001/002"
 _SAAS = "T7: the TensorBoard and SaaS loggers"
 
 #: targets the port does not have yet → their ROADMAP item
 NOT_PORTED: Dict[str, str] = {
-    "predict_pv_yield_tpu.models.conv3d.Model": _MODELS_LATER,
-    "predict_pv_yield.models.conv3d.model.Model": _MODELS_LATER,
-    "predict_pv_yield_tpu.models.conv3d_nwp.Model": _MODELS_LATER,
-    "predict_pv_yield.models.conv3d.model_nwp.Model": _MODELS_LATER,
-    "predict_pv_yield_tpu.models.experimental.CNNConcatTimesteps": _EXPERIMENTS,
-    "predict_pv_yield_tpu.models.experimental.CNNRNN": _EXPERIMENTS,
     "predict_pv_yield_tpu.training.loggers.TensorBoardLogger": _SAAS,
     "pytorch_lightning.loggers.tensorboard.TensorBoardLogger": _SAAS,
     "predict_pv_yield_tpu.training.loggers.WandbLogger": _SAAS,

@@ -71,6 +71,13 @@ SAT_STD = np.array(
 SAT_IMAGE_MEAN = np.float32(93.23458)
 SAT_IMAGE_STD = np.float32(115.34247)
 
+#: OSGB normalisation of the coordinate-plane input channels of the
+#: experiment models.
+SAT_X_MEAN = np.float32(309000)
+SAT_X_STD = np.float32(316387.42073603)
+SAT_Y_MEAN = np.float32(519000)
+SAT_Y_STD = np.float32(406454.17945938)
+
 #: Number of PV systems per example in a prepared batch.
 N_PV_SYSTEMS_PER_EXAMPLE = 128
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from predict_pv_yield_tpu_torch.models.flow_forecaster import FORECASTER_ARCHITECTURES
+from predict_pv_yield_tpu_torch.models.layers import tower_names
 
 
 def _conv_weight(kernel: np.ndarray) -> np.ndarray:
@@ -78,6 +79,24 @@ def flatten_permutation(channels: int, time: int, height: int, width: int) -> np
     return torch_idx.transpose(1, 2, 3, 0).reshape(-1)
 
 
+def _dense(state: Dict, name: str, layer: Mapping, flattened=None) -> None:
+    """A flax ``Dense`` → ``{name}.weight`` / ``.bias``; ``flattened`` =
+    (C, T, H, W) of the tower output it reads reorders its rows from the
+    JAX package's (T, H, W, C) flatten to torch's (C, T, H, W)."""
+    kernel = np.asarray(layer["kernel"], np.float32)  # (in, out)
+    if flattened is not None:
+        kernel = kernel[np.argsort(flatten_permutation(*flattened))]
+    state[f"{name}.weight"] = _tensor(kernel.T)
+    state[f"{name}.bias"] = _tensor(layer["bias"])
+
+
+def _convs(state: Dict, names, layers) -> None:
+    """flax ``Conv``s (2-D or 3-D), in order, → the torch convs ``names``."""
+    for name, layer in zip(names, layers):
+        state[f"{name}.weight"] = _tensor(_conv_weight(np.asarray(layer["kernel"])))
+        state[f"{name}.bias"] = _tensor(layer["bias"])
+
+
 def conv3d_sat_nwp_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
     """The port ``Model``'s ``state_dict`` for the JAX package's
     ``conv3d_sat_nwp`` parameters (the variables dict or its ``"params"``).
@@ -99,33 +118,111 @@ def conv3d_sat_nwp_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
     model.size_yield_inputs(yield_series, pv_series)
     state: Dict[str, torch.Tensor] = {}
 
-    def linear(name: str, layer: Mapping, flattened=None) -> None:
-        kernel = np.asarray(layer["kernel"], np.float32)  # (in, out)
-        if flattened is not None:  # rows back from the (T, H, W, C) to the (C, T, H, W) flatten
-            kernel = kernel[np.argsort(flatten_permutation(*flattened))]
-        state[f"{name}.weight"] = _tensor(kernel.T)
-        state[f"{name}.bias"] = _tensor(layer["bias"])
-
     def tower(prefix: str, layers: Mapping) -> None:
-        for i in range(n):
-            state[f"{prefix}{i}.weight"] = _tensor(_conv_weight(np.asarray(layers[f"conv{i}"]["kernel"])))
-            state[f"{prefix}{i}.bias"] = _tensor(layers[f"conv{i}"]["bias"])
+        _convs(state, tower_names(prefix, n), [layers[f"conv{i}"] for i in range(n)])
 
     tower("sat_conv", params["sat_tower"])
     sat_size = model.image_size_pixels - 2 * n
-    linear("fc1", params["fc1"], (ch, model.sat_time_steps, sat_size, sat_size))
-    linear("fc2", params["fc2"])
+    _dense(state, "fc1", params["fc1"], (ch, model.sat_time_steps, sat_size, sat_size))
+    _dense(state, "fc2", params["fc2"])
     if model.include_pv_yield_history:
-        linear("pv_fc1", params["pv_fc1"])
+        _dense(state, "pv_fc1", params["pv_fc1"])
     if model.include_nwp:
         tower("nwp_conv", params["nwp_tower"])
         nwp_size = model.nwp_image_size_pixels - 2 * n
-        linear("nwp_fc1", params["nwp_fc1"], (ch, model.seq_lens.seq_len_60, nwp_size, nwp_size))
-        linear("nwp_fc2", params["nwp_fc2"])
+        _dense(state, "nwp_fc1", params["nwp_fc1"], (ch, model.seq_lens.seq_len_60, nwp_size, nwp_size))
+        _dense(state, "nwp_fc2", params["nwp_fc2"])
     if model.embedding_dem:
         state["pv_system_id_embedding.weight"] = _tensor(params["pv_system_id_embedding"]["embedding"])
-    linear("fc3", params["fc3"])
-    linear("fc4", params["fc4"])
+    _dense(state, "fc3", params["fc3"])
+    _dense(state, "fc4", params["fc4"])
+    return state
+
+
+def _rows(params: Mapping, name: str) -> int:
+    return int(np.shape(params[name]["kernel"])[0])
+
+
+def conv3d_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """The port ``conv3d.Model``'s ``state_dict`` for the JAX package's
+    ``conv3d`` parameters (the variables dict or its ``"params"``), in the
+    reference's names (``sat_conv0``, ``conv3d_{i}``, ``fc_nwp``). ``fc3``
+    and ``fc_nwp`` take their widths from the flax kernels (the JAX model
+    sizes both from its first batch). The inverse of the JAX package's
+    ``convert_conv3d``."""
+    if "params" in params:
+        params = params["params"]
+    series, nwp_features = model.yield_history_series, model.nwp_input_features
+    if model.include_nwp:
+        nwp_features = _rows(params, "fc_nwp")
+    if model.include_pv_yield:
+        others = model.fc3_in_features - model.yield_history_series * (model.history_len_30 + 1)
+        series = (_rows(params, "fc3") - others) // (model.history_len_30 + 1)
+    model.size_inputs(series, nwp_features)
+    state: Dict[str, torch.Tensor] = {}
+    tower = params["sat_tower"]
+    _convs(state, model.tower, [tower[f"conv{i}"] for i in range(model.number_of_conv3d_layers)])
+    _dense(state, "fc1", params["fc1"], model.tower_output_shape)
+    _dense(state, "fc2", params["fc2"])
+    if model.include_nwp:
+        _dense(state, "fc_nwp", params["fc_nwp"])
+    _dense(state, "fc3", params["fc3"])
+    _dense(state, "fc4", params["fc4"])
+    return state
+
+
+def conv3d_nwp_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """The port ``conv3d_nwp.Model``'s ``state_dict`` for the JAX package's
+    ``conv3d_nwp`` parameters."""
+    if "params" in params:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+    n = model.number_of_conv3d_layers
+    _convs(state, model.tower, [params["nwp_tower"][f"conv{i}"] for i in range(n)])
+    size = model.nwp_image_size_pixels - 2 * n
+    _dense(state, "nwp_fc1", params["nwp_fc1"], (model.conv3d_channels, model.seq_lens.seq_len_60, size, size))
+    for name in ("nwp_fc2", "fc3", "fc4"):
+        _dense(state, name, params[name])
+    return state
+
+
+def _experiment_cnn(params: Mapping, model, state: Dict) -> None:
+    """The three 2-D convs, ``fc1`` (rows from the (H, W, C) flatten) and
+    the system-ID embedding of an experiment model."""
+    names = ("sat_conv1", "sat_conv2", "sat_conv3")
+    _convs(state, names, [params[name] for name in names])
+    channels, height, width = model.cnn_output_shape
+    _dense(state, "fc1", params["fc1"], (channels, 1, height, width))
+    if model.embedding_dim:
+        state["pv_system_id_embedding.weight"] = _tensor(params["pv_system_id_embedding"]["embedding"])
+
+
+def cnn_concat_timesteps_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """The port ``CNNConcatTimesteps``'s ``state_dict`` for the JAX
+    package's parameters. The model's input widths must be those of the
+    data the flax parameters were made for (``match_configuration``)."""
+    if "params" in params:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+    _experiment_cnn(params, model, state)
+    for name in ("fc2", "fc3", "fc4", "fc5"):
+        _dense(state, name, params[name])
+    return state
+
+
+def cnn_rnn_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """The port ``CNNRNN``'s ``state_dict`` for the JAX package's
+    parameters: the CNN, ``fc1`` … ``fc5``, the two GRUs and the decoder
+    head. The model's input widths must be those of the data the flax
+    parameters were made for (``match_configuration``)."""
+    if "params" in params:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+    _experiment_cnn(params, model, state)
+    for name in ("fc2", "fc3", "fc4", "fc5", "decoder_fc1", "decoder_fc2"):
+        _dense(state, name, params[name])
+    _gru(params["encoder_rnn"], "encoder_rnn", state)
+    _gru(params["decoder_rnn"], "decoder_rnn", state)
     return state
 
 
@@ -135,12 +232,7 @@ def _perceiver_attention(params: Mapping, prefix: str, state: Dict) -> None:
     state[f"{prefix}.to_q.weight"] = _tensor(np.asarray(params["to_q"]["kernel"]).T)
     state[f"{prefix}.to_kv.weight"] = _tensor(np.concatenate(
         [np.asarray(params["to_k"]["kernel"]).T, np.asarray(params["to_v"]["kernel"]).T]))
-    _perceiver_linear(params["to_out"], f"{prefix}.to_out", state)
-
-
-def _perceiver_linear(layer: Mapping, name: str, state: Dict) -> None:
-    state[f"{name}.weight"] = _tensor(np.asarray(layer["kernel"]).T)
-    state[f"{name}.bias"] = _tensor(layer["bias"])
+    _dense(state, f"{prefix}.to_out", params["to_out"])
 
 
 def _perceiver_norm(layer: Mapping, name: str, state: Dict) -> None:
@@ -156,16 +248,16 @@ def _perceiver_block(params: Mapping, prefix: str, state: Dict) -> None:
     _perceiver_norm(params["cross_context_norm"], f"{prefix}.0.norm_context", state)
     _perceiver_attention(params["cross_attn"], f"{prefix}.0.fn", state)
     _perceiver_norm(params["cross_ff_norm"], f"{prefix}.1.norm", state)
-    _perceiver_linear(params["cross_ff"]["in"], f"{prefix}.1.fn.net.0", state)
-    _perceiver_linear(params["cross_ff"]["out"], f"{prefix}.1.fn.net.2", state)
+    _dense(state, f"{prefix}.1.fn.net.0", params["cross_ff"]["in"])
+    _dense(state, f"{prefix}.1.fn.net.2", params["cross_ff"]["out"])
     j = 0
     while f"self_attn{j}" in params:
         latent = f"{prefix}.2.{j}"
         _perceiver_norm(params[f"self_norm{j}"], f"{latent}.0.norm", state)
         _perceiver_attention(params[f"self_attn{j}"], f"{latent}.0.fn", state)
         _perceiver_norm(params[f"self_ff_norm{j}"], f"{latent}.1.norm", state)
-        _perceiver_linear(params[f"self_ff{j}"]["in"], f"{latent}.1.fn.net.0", state)
-        _perceiver_linear(params[f"self_ff{j}"]["out"], f"{latent}.1.fn.net.2", state)
+        _dense(state, f"{latent}.1.fn.net.0", params[f"self_ff{j}"]["in"])
+        _dense(state, f"{latent}.1.fn.net.2", params[f"self_ff{j}"]["out"])
         j += 1
 
 
@@ -179,7 +271,7 @@ def _perceiver_encoder(params: Mapping, depth: int, prefix: str, state: Dict) ->
         block = params["block"]["inner"] if i and "block" in params else params[f"block{i}"]
         _perceiver_block(block, f"{prefix}.layers.{i}", state)
     _perceiver_norm(params["head_norm"], f"{prefix}.to_logits.1", state)
-    _perceiver_linear(params["to_logits"], f"{prefix}.to_logits.2", state)
+    _dense(state, f"{prefix}.to_logits.2", params["to_logits"])
 
 
 def _gru(params: Mapping, prefix: str, state: Dict) -> None:
@@ -213,12 +305,10 @@ def perceiver_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for stem in ("sat_conv3d_maxpool", "nwp_conv3d_maxpool"):
         if stem in params:
-            conv = params[stem]["conv"]
-            state[f"{stem}.conv.weight"] = _tensor(_conv_weight(np.asarray(conv["kernel"])))
-            state[f"{stem}.conv.bias"] = _tensor(conv["bias"])
+            _convs(state, [f"{stem}.conv"], [params[stem]["conv"]])
     _perceiver_encoder(params["perceiver"], model.total_seq_length, "perceiver", state)
     for name in ("fc1", "fc2", "fc3", "fc4", "fc5", "decoder_fc1", "decoder_fc2"):
-        _perceiver_linear(params[name], name, state)
+        _dense(state, name, params[name])
     if "pv_system_id_embedding" in params:
         state["pv_system_id_embedding.weight"] = _tensor(params["pv_system_id_embedding"]["embedding"])
     _gru(params["encoder_rnn"], "encoder_rnn", state)

@@ -10,7 +10,10 @@ from __future__ import annotations
 from typing import Dict, Type
 
 from predict_pv_yield_tpu_torch.models import baseline as _baseline
+from predict_pv_yield_tpu_torch.models import conv3d as _conv3d
+from predict_pv_yield_tpu_torch.models import conv3d_nwp as _conv3d_nwp
 from predict_pv_yield_tpu_torch.models import conv3d_sat_nwp as _conv3d_sat_nwp
+from predict_pv_yield_tpu_torch.models import experimental as _experimental
 from predict_pv_yield_tpu_torch.models import perceiver as _perceiver
 from predict_pv_yield_tpu_torch.models import perceiver_conv3d_nwp_sat as _perceiver_conv3d_nwp_sat
 from predict_pv_yield_tpu_torch.models import perceiver_nwp_sat as _perceiver_nwp_sat
@@ -18,7 +21,11 @@ from predict_pv_yield_tpu_torch.models import perceiver_nwp_sat as _perceiver_nw
 MODEL_REGISTRY: Dict[str, Type] = {
     "last_value": _baseline.Model,
     "baseline": _baseline.Model,
+    "conv3d": _conv3d.Model,
     "conv3d_sat_nwp": _conv3d_sat_nwp.Model,
+    "conv3d_nwp": _conv3d_nwp.Model,
+    "cnn_concat_timesteps": _experimental.CNNConcatTimesteps,
+    "cnn_rnn": _experimental.CNNRNN,
     "perceiver": _perceiver.PerceiverModel,
     "perceiver_nwp_sat": _perceiver_nwp_sat.Model,
     "perceiver_conv3d_nwp_sat": _perceiver_conv3d_nwp_sat.Model,
@@ -27,6 +34,12 @@ MODEL_REGISTRY: Dict[str, Type] = {
 MODEL_TARGETS: Dict[str, Type] = {
     "predict_pv_yield_tpu.models.baseline.Model": _baseline.Model,
     "predict_pv_yield.models.baseline.last_value.Model": _baseline.Model,
+    "predict_pv_yield_tpu.models.conv3d.Model": _conv3d.Model,
+    "predict_pv_yield.models.conv3d.model.Model": _conv3d.Model,
+    "predict_pv_yield_tpu.models.conv3d_nwp.Model": _conv3d_nwp.Model,
+    "predict_pv_yield.models.conv3d.model_nwp.Model": _conv3d_nwp.Model,
+    "predict_pv_yield_tpu.models.experimental.CNNConcatTimesteps": _experimental.CNNConcatTimesteps,
+    "predict_pv_yield_tpu.models.experimental.CNNRNN": _experimental.CNNRNN,
     "predict_pv_yield_tpu.models.conv3d_sat_nwp.Model": _conv3d_sat_nwp.Model,
     "predict_pv_yield.models.conv3d.model_sat_nwp.Model": _conv3d_sat_nwp.Model,
     "predict_pv_yield_tpu.models.perceiver.PerceiverModel": _perceiver.PerceiverModel,

@@ -7,14 +7,39 @@ target variable (``pv_yield`` → 5-minute cadence, 128 samples per batch;
 ``y[0:batch_size, -forecast_len:, 0]``. Hyperparameters are constructor
 arguments with the JAX package's names and defaults, so
 ``Model(**model_yaml)`` works.
+
+The precision policy (the JAX package's module ``dtype``): a model's
+``compute_dtype`` is None (fp32) unless the trainer runs at ``precision``
+16/bf16 (:func:`is_bf16`), which sets it to ``torch.bfloat16``. The forward
+then runs under ``torch.autocast`` (:meth:`BaseModel.compute_precision`):
+convolutions, matrix products and attention in bf16, while parameters,
+gradients and the optimiser's state stay fp32 and no loss is scaled.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import ContextManager, Optional
+
 import torch
 from torch import nn
 
+from predict_pv_yield_tpu_torch.consts import SAT_VARIABLE_NAMES
 from predict_pv_yield_tpu_torch.seqlen import SeqLens
+
+#: the ``precision`` values that select bf16 compute, as the JAX engine's
+#: ``_bf16`` reads them; any other value runs fp32
+BF16_PRECISIONS = ("16", "bf16", "16-mixed", "bf16-mixed")
+
+#: the default dataset geometry: 11 satellite channels (all but HRV) and
+#: images of 64 px; the widths that follow the data start from it
+DEFAULT_SAT_CHANNELS = len(SAT_VARIABLE_NAMES) - 1
+DEFAULT_IMAGE_SIZE_PIXELS = 64
+
+
+def is_bf16(precision) -> bool:
+    """Whether a trainer ``precision`` selects bf16 compute."""
+    return str(precision) in BF16_PRECISIONS
 
 
 class BaseModel(nn.Module):
@@ -22,6 +47,9 @@ class BaseModel(nn.Module):
 
     #: model-zoo name
     model_name = "base"
+    #: the forward's compute dtype: None runs fp32, ``torch.bfloat16`` runs
+    #: it under autocast (set by the trainer from its ``precision``)
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(
         self,
@@ -41,6 +69,13 @@ class BaseModel(nn.Module):
         self.batch_size = batch_size
         #: stem of the per-epoch validation-results CSV
         self.results_file_name = results_file_name
+
+    def compute_precision(self, device: torch.device) -> ContextManager:
+        """The context the forward runs in on ``device``: autocast to
+        ``compute_dtype``, or nothing for fp32."""
+        if self.compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(torch.device(device).type, dtype=self.compute_dtype)
 
     @property
     def seq_lens(self) -> SeqLens:

@@ -33,6 +33,7 @@ from predict_pv_yield_tpu_torch.models.layers import (
     conv3d_tower,
     embed_checked,
     init_parameters,
+    tower_names,
 )
 
 
@@ -90,13 +91,13 @@ class Model(BaseModel):
         self.yield_history_series = self.number_of_samples_per_batch
         #: PV systems in the 5-minute PV branch: min(systems per example, 128)
         self.pv_history_series = self.number_of_pv_samples_per_batch
-        add_conv3d_tower(self, "sat_conv", number_sat_channels, ch, n, pad_time=True)
+        add_conv3d_tower(self, tower_names("sat_conv", n), number_sat_channels, ch, pad_time=True)
         self.fc1 = nn.Linear(self.cnn_output_size, fc1_output_features)
         self.fc2 = nn.Linear(fc1_output_features, fc2_output_features)
         if include_pv_yield_history:
             self.pv_fc1 = nn.Linear(self.pv_history_series * (self.history_len_5 + 1), 128)
         if include_nwp:
-            add_conv3d_tower(self, "nwp_conv", number_nwp_channels, ch, n, pad_time=True)
+            add_conv3d_tower(self, tower_names("nwp_conv", n), number_nwp_channels, ch, pad_time=True)
             self.nwp_fc1 = nn.Linear(self.nwp_cnn_output_size, fc1_output_features)
             self.nwp_fc2 = nn.Linear(fc1_output_features, 128)
         if embedding_dem:
@@ -165,7 +166,7 @@ class Model(BaseModel):
         batch_size = sat_data.shape[0]
         if not self.include_future_satellite:
             sat_data = sat_data[:, :, : self.history_len_5 + 1]
-        out = conv3d_tower(self, "sat_conv", n, sat_data).reshape(batch_size, self.cnn_output_size)
+        out = conv3d_tower(self, tower_names("sat_conv", n), sat_data).reshape(batch_size, self.cnn_output_size)
         out = F.relu(self.fc1(out))
         out = F.relu(self.fc2(out))
 
@@ -186,7 +187,8 @@ class Model(BaseModel):
 
         if self.include_nwp:
             nwp_data = x.nwp.data.float()
-            out_nwp = conv3d_tower(self, "nwp_conv", n, nwp_data).reshape(batch_size, self.nwp_cnn_output_size)
+            out_nwp = conv3d_tower(self, tower_names("nwp_conv", n), nwp_data)
+            out_nwp = out_nwp.reshape(batch_size, self.nwp_cnn_output_size)
             out_nwp = F.relu(self.nwp_fc1(out_nwp))
             out_nwp = F.relu(self.nwp_fc2(out_nwp))
             out = torch.cat([out, out_nwp], dim=1)

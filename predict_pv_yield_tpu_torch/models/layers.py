@@ -5,7 +5,7 @@ are."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,26 +79,29 @@ def embed_checked(embedding: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(invalid[..., None], torch.nan, rows)
 
 
+def tower_names(prefix: str, num_layers: int) -> Tuple[str, ...]:
+    """``{prefix}0 … {prefix}{n-1}``: the reference's flat layer names."""
+    return tuple(f"{prefix}{i}" for i in range(num_layers))
+
+
 def add_conv3d_tower(
-    module: nn.Module, prefix: str, in_channels: int, channels: int, num_layers: int, pad_time: bool = False
+    module: nn.Module, names: Sequence[str], in_channels: int, channels: int, pad_time: bool = False
 ) -> None:
-    """Register ``num_layers`` 3×3×3 ``Conv3d``s on ``module`` as
-    ``{prefix}0 … {prefix}{n-1}`` — the reference's flat names, so
-    state_dicts load with ``strict=True``. ``pad_time`` pads time only
+    """Register one 3×3×3 ``Conv3d`` on ``module`` per name in ``names``
+    (the reference's flat names, e.g. :func:`tower_names`, so state_dicts
+    load with ``strict=True``). ``pad_time`` pads time only
     (``padding=(1, 0, 0)``: T kept, H and W valid), else nothing is padded.
     """
     padding = (1, 0, 0) if pad_time else 0
-    for i in range(num_layers):
-        module.add_module(
-            f"{prefix}{i}", nn.Conv3d(in_channels if i == 0 else channels, channels, 3, padding=padding)
-        )
+    for i, name in enumerate(names):
+        module.add_module(name, nn.Conv3d(in_channels if i == 0 else channels, channels, 3, padding=padding))
 
 
-def conv3d_tower(module: nn.Module, prefix: str, num_layers: int, x: torch.Tensor) -> torch.Tensor:
+def conv3d_tower(module: nn.Module, names: Sequence[str], x: torch.Tensor) -> torch.Tensor:
     """The tower registered by :func:`add_conv3d_tower`: conv + ReLU per
     layer, (B, C, T, H, W) in and out."""
-    for i in range(num_layers):
-        x = F.relu(getattr(module, f"{prefix}{i}")(x))
+    for name in names:
+        x = F.relu(getattr(module, name)(x))
     return x
 
 
@@ -106,10 +109,20 @@ class StackedGRU(nn.GRU):
     """A ``num_layers``-deep ``nn.GRU`` over (B, T, F) sequences, batch
     first: ``(outputs, h_n)`` with ``h_n`` the final hidden state of every
     layer, so an encoder's state can seed a decoder (the JAX package's
-    ``layers.StackedGRU``, the reference's ``nn.GRU(num_layers=2)``)."""
+    ``layers.StackedGRU``, the reference's ``nn.GRU(num_layers=2)``).
+
+    It runs in its parameters' dtype (fp32) under a bf16 autocast as well:
+    inputs and state are cast to it, outside autocast. PyTorch's CUDA
+    autocast runs ``nn.GRU`` in float16 even when asked for bfloat16
+    (PERF.md, PR 7), and the work is small (16 hidden units)."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2):
         super().__init__(input_size, hidden_size, num_layers=num_layers, batch_first=True)
+
+    def forward(self, x: torch.Tensor, hx: Optional[torch.Tensor] = None):
+        dtype = self.weight_ih_l0.dtype
+        with torch.autocast(x.device.type, enabled=False):
+            return super().forward(x.to(dtype), None if hx is None else hx.to(dtype))
 
 
 class Conv3dMaxPool(nn.Module):

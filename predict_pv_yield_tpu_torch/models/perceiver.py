@@ -30,18 +30,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from predict_pv_yield_tpu_torch.consts import N_PERCEIVER_EMBEDDING_IDS, NWP_VARIABLE_NAMES, SAT_VARIABLE_NAMES
+from predict_pv_yield_tpu_torch.consts import N_PERCEIVER_EMBEDDING_IDS, NWP_VARIABLE_NAMES
 from predict_pv_yield_tpu_torch.data.batch import as_batch
-from predict_pv_yield_tpu_torch.models.base import BaseModel
+from predict_pv_yield_tpu_torch.models.base import DEFAULT_IMAGE_SIZE_PIXELS, DEFAULT_SAT_CHANNELS, BaseModel
 from predict_pv_yield_tpu_torch.models.layers import StackedGRU, embed_checked, init_parameters
 from predict_pv_yield_tpu_torch.models.perceiver_core import Perceiver
 
 PERCEIVER_OUTPUT_SIZE = 512
 FC_OUTPUT_SIZE = 8
 RNN_HIDDEN_SIZE = 16
-#: the reference's ``params``: 11 satellite channels (all but HRV) at 64 px
-DEFAULT_SAT_CHANNELS = len(SAT_VARIABLE_NAMES) - 1
-DEFAULT_IMAGE_SIZE_PIXELS = 64
 
 
 def pad_time(x: torch.Tensor, length: int) -> torch.Tensor:

@@ -42,12 +42,19 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 LAYER_NORM_EPS = 1e-6
 
 
-def sdpa_backend(device: torch.device) -> SDPBackend:
-    """The attention backend: on the card the memory-efficient kernel when
-    no gradient is recorded (flash attention takes no fp32), else PyTorch's
-    plain product, whose backward is 1.4× faster there at the YAML widths
-    (``profile_perceiver``, PERF.md); on the CPU the plain product."""
-    if device.type == "cuda" and not torch.is_grad_enabled():
+def sdpa_backend(device: torch.device, dtype: torch.dtype = torch.float32) -> SDPBackend:
+    """The attention backend for inputs of ``dtype`` on ``device``, chosen
+    from the card's measurements (``profile_perceiver``, PERF.md §5). In
+    fp32: the memory-efficient kernel when no gradient is recorded (flash
+    attention takes no fp32), else PyTorch's plain product, whose backward
+    is 1.4× faster there at the YAML widths. In bf16: flash attention, with
+    a gradient (2.3× faster than the memory-efficient kernel's step at
+    perceiver.yaml's widths) or without. On the CPU: the plain product."""
+    if device.type != "cuda":
+        return SDPBackend.MATH
+    if dtype in (torch.bfloat16, torch.float16):
+        return SDPBackend.FLASH_ATTENTION
+    if not torch.is_grad_enabled():
         return SDPBackend.EFFICIENT_ATTENTION
     return SDPBackend.MATH
 
@@ -107,8 +114,8 @@ class Attention(nn.Module):
         """Attend from ``x`` to the precomputed ``kv``, or to ``x`` itself."""
         k, v = self.keys_values(x) if kv is None else kv
         q = self._split(self.to_q(x))
-        with sdpa_kernel(sdpa_backend(q.device)):
-            out = F.scaled_dot_product_attention(q, k, v)  # scale 1/sqrt(d), softmax in the inputs' fp32
+        with sdpa_kernel(sdpa_backend(q.device, q.dtype)):
+            out = F.scaled_dot_product_attention(q, k, v)  # scale 1/sqrt(d)
         return self.to_out(out.transpose(1, 2).flatten(-2))
 
 

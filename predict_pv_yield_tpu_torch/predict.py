@@ -40,11 +40,15 @@ from predict_pv_yield_tpu_torch.utils import full_fp32, resolve_device
 def forward_and_metrics(model, batch: Batch, channel_names=None, weighted: Optional[WeightedLosses] = None):
     """Decode, forward, target and the four batch metrics →
     ``(y_hat, y, metrics)``. ``channel_names`` picks the satellite channel
-    statistics of the decode (inferred from the count without it)."""
+    statistics of the decode (inferred from the count without it). The
+    forward runs in the model's compute precision; the forecasts come out
+    as fp32, and the targets are fp32 as they come."""
     batch = preprocess_batch(batch, channel_names=channel_names)
     if weighted is None:
         weighted = WeightedLosses(forecast_length=model.forecast_len, device=batch.satellite.data.device)
-    y_hat = model(batch).float()
+    with model.compute_precision(batch.satellite.data.device):
+        y_hat = model(batch)
+    y_hat = y_hat.float()
     y = model.target(batch).float()
     metrics = {
         "MSE": mse_loss(y_hat, y),
@@ -224,7 +228,8 @@ def run(
 def main(argv=None) -> Dict:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--model", required=True,
-                        help="model-zoo name (conv3d_sat_nwp, perceiver, perceiver_nwp_sat, perceiver_conv3d_nwp_sat)")
+                        help="model-zoo name (conv3d_sat_nwp, conv3d, conv3d_nwp, cnn_concat_timesteps, cnn_rnn, "
+                        "perceiver, perceiver_nwp_sat, perceiver_conv3d_nwp_sat)")
     parser.add_argument("--model-config", required=True, help="model hyperparameter YAML")
     parser.add_argument("--checkpoint", help="reference Lightning .ckpt or port state_dict .pt")
     parser.add_argument("--n-batches", type=int, default=10)

@@ -25,8 +25,15 @@ surface and loop semantics:
   one copy at its end: a per-step ``.item()`` would stall the copy
   pipeline.
 
-Steps run in full fp32 (``utils.full_fp32``: no TF32). Parameters are drawn
-at ``setup`` from ``torch.Generator().manual_seed(seed)``, as the JAX engine
+Steps run in full fp32 (``utils.full_fp32``: no TF32), or at ``precision``
+16/bf16 (``"16"``, ``"bf16"``, ``"16-mixed"``, ``"bf16-mixed"``, as the JAX
+engine's ``_bf16``) with the forward under bf16 autocast
+(``BaseModel.compute_dtype``, the JAX package's module ``dtype``):
+parameters, gradients and Adam's state stay fp32, no loss is scaled, and
+the loss and metrics take the forecasts as fp32 against fp32 targets.
+Batches ship as they come and narrow inside the model. Validation and test
+passes inside ``fit`` run in the same precision. Parameters are drawn at
+``setup`` from ``torch.Generator().manual_seed(seed)``, as the JAX engine
 draws them from ``jax.random.key(seed)``.
 
 Knobs of the JAX engine that are not ported yet raise
@@ -49,6 +56,7 @@ import torch
 
 from predict_pv_yield_tpu_torch.data.batch import Batch
 from predict_pv_yield_tpu_torch.losses import WeightedLosses
+from predict_pv_yield_tpu_torch.models.base import is_bf16
 from predict_pv_yield_tpu_torch.models.layers import init_parameters
 from predict_pv_yield_tpu_torch.predict import channel_names_of, eval_step, forward_and_metrics, iter_batches
 from predict_pv_yield_tpu_torch.training.callbacks import Callback, ModelCheckpoint, load_loop_state, load_state
@@ -60,7 +68,6 @@ log = logging.getLogger(__name__)
 
 #: knob → (its default, the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "precision": (32, "T1: precision 16/bf16 and the module-dtype policy"),
     "steps_per_execution": (1, "T2: steps_per_execution as a CUDA graph of k steps"),
     "auto_lr_find": (False, "T3: lr_find, tune and auto_lr_find"),
     "wire_float16": (False, "T4: wire_float16 and its 'auto' probe"),
@@ -165,7 +172,6 @@ class Trainer:
         **lightning_compat: Any,
     ):
         for knob, value, changed in (
-            ("precision", precision, str(precision) != "32"),
             ("steps_per_execution", steps_per_execution, int(steps_per_execution) != 1),
             ("auto_lr_find", auto_lr_find, bool(auto_lr_find)),
             ("wire_float16", wire_float16, wire_float16 is not False),
@@ -199,6 +205,10 @@ class Trainer:
         self.callbacks = sorted(list(callbacks or []), key=lambda cb: isinstance(cb, ModelCheckpoint))
         self.logger = _as_logger_collection(logger)
         self.precision = precision
+        #: precision 16/bf16 (the JAX engine's ``_bf16``): the forward runs
+        #: under bf16 autocast; parameters, gradients and Adam's state stay
+        #: fp32, with no loss scaling
+        self.bf16 = is_bf16(precision)
         self.fast_dev_run = bool(fast_dev_run)
         self.profiler = _SimpleProfiler() if profiler else None
         self.resume_from_checkpoint = resume_from_checkpoint
@@ -316,6 +326,8 @@ class Trainer:
         if self._configuration is not None and hasattr(model, "match_configuration"):
             model.match_configuration(self._configuration)
         init_parameters(model, torch.Generator().manual_seed(self.seed))
+        if self.bf16 and hasattr(model, "compute_dtype") and model.compute_dtype is None:
+            model.compute_dtype = torch.bfloat16
         model = model.to(self.device)
         self._model = model
         n_params = count_parameters(model)
@@ -420,7 +432,8 @@ class Trainer:
 
     def loss_and_grads(self, batch: Batch):
         """Forward, the four metrics and the NMAE gradient of every
-        trainable parameter → ``(metrics, grads)``, in full fp32."""
+        trainable parameter → ``(metrics, grads)``, in full fp32 (or the
+        forward in the model's bf16 autocast)."""
         with full_fp32():
             _, _, metrics = forward_and_metrics(self._model, batch, self._satellite_channels, self._weighted)
             grads = []

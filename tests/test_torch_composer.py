@@ -99,13 +99,14 @@ def test_instantiate_builds_port_objects(tmp_cwd):
 
 
 @pytest.mark.parametrize("overrides,section,item", [
-    (["model=conv3d"], ("model",), "M10"),
-    (["model=conv3d_nwp"], ("model",), "M10"),
-    (["experiment=003_perceiver_rnn"], ("trainer",), "T1"),
+    # ported since (item None): they instantiate port objects
+    (["model=conv3d"], ("model",), None),
+    (["model=conv3d_nwp"], ("model",), None),
+    (["experiment=003_perceiver_rnn"], ("trainer",), None),
     (["experiment=perceiver_tp"], ("model",), "M14"),
     (["experiment=perceiver_tp", "trainer.precision=32"], ("trainer",), "T9"),
-    (["model=cnn_rnn"], ("model",), "M12"),
-    (["model=cnn_concat_timesteps"], ("model",), "M12"),
+    (["model=cnn_rnn"], ("model",), None),
+    (["model=cnn_concat_timesteps"], ("model",), None),
     (["datamodule=zarr_stream", "datamodule.zarr_path=gs://bucket/satellite.zarr"], ("datamodule",), "M9"),
     (["datamodule.data_path=gs://bucket/v15"], ("datamodule",), "M9"),
     (["logger=tensorboard"], ("logger", "tensorboard"), "T7"),
@@ -116,6 +117,12 @@ def test_instantiate_names_the_roadmap_item(overrides, section, item):
     node = _compose(overrides)
     for key in section:
         node = node[key]
+    if item is None:
+        made = instantiate(node, **({"device": "cpu"} if section == ("trainer",) else {}))
+        assert type(made).__module__.startswith("predict_pv_yield_tpu_torch.")
+        if section == ("trainer",):  # experiment 003 trains at precision 16: bf16
+            assert made.bf16 and made.precision == 16
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         instantiate(node)
 

@@ -191,14 +191,23 @@ def test_seqlens_match(history, forecast):
 
 
 def test_registry_resolves_yaml_targets():
-    from predict_pv_yield_tpu_torch.models import perceiver, perceiver_conv3d_nwp_sat, perceiver_nwp_sat
+    from predict_pv_yield_tpu_torch.models import (
+        conv3d,
+        conv3d_nwp,
+        experimental,
+        perceiver,
+        perceiver_conv3d_nwp_sat,
+        perceiver_nwp_sat,
+    )
     from predict_pv_yield_tpu_torch.models.baseline import Model as Baseline
 
     assert MODEL_REGISTRY == {"conv3d_sat_nwp": Model, "baseline": Baseline, "last_value": Baseline,
                               "perceiver": perceiver.PerceiverModel, "perceiver_nwp_sat": perceiver_nwp_sat.Model,
-                              "perceiver_conv3d_nwp_sat": perceiver_conv3d_nwp_sat.Model}
+                              "perceiver_conv3d_nwp_sat": perceiver_conv3d_nwp_sat.Model, "conv3d": conv3d.Model,
+                              "conv3d_nwp": conv3d_nwp.Model, "cnn_concat_timesteps": experimental.CNNConcatTimesteps,
+                              "cnn_rnn": experimental.CNNRNN}
     for name in ("conv3d_sat_nwp", "predict_pv_yield_tpu.models.conv3d_sat_nwp.Model",
                  "predict_pv_yield.models.conv3d.model_sat_nwp.Model"):
         assert get_model(name) is Model
     with pytest.raises(KeyError):
-        get_model("conv3d")
+        get_model("flow_forecaster")  # the JAX registry's, not a forecast model of the port

@@ -382,9 +382,13 @@ def test_registry_and_experiments(tmp_cwd):
         config = compose("config", [f"experiment={experiment}"])
         assert type(instantiate(config["model"])) is cls is get_model(config["model"]["_target_"])
     assert get_model("predict_pv_yield.models.perceiver.perceiver.PerceiverModel") is PerceiverModel
-    with pytest.raises(NotImplementedError, match="ROADMAP T1"):
-        train(compose("config", ["experiment=003_perceiver_rnn", "datamodule.fake_data=true",
-                                 "+trainer.device=cpu"]))
+    # experiment 003 (perceiver.yaml at precision 16) trains, in bf16
+    metric = train(compose("config", [
+        "experiment=003_perceiver_rnn", "datamodule.fake_data=true",
+        f"datamodule.data_path={REPO / 'tests/configs/dataset_perceiver'}", "datamodule.n_train_data=2",
+        "datamodule.n_val_data=1", "datamodule.num_workers=0", "trainer.max_epochs=1", "model.batch_size=2",
+        "model.num_latents=4", "model.latent_dim=8", "+trainer.device=cpu", "+optimized_metric=MSE/Validation_epoch"]))
+    assert metric is not None and np.isfinite(metric)
     with pytest.raises(NotImplementedError, match="ROADMAP M14"):
         train(compose("config", ["experiment=perceiver_tp", "datamodule.fake_data=true", "+trainer.device=cpu"]))
 

@@ -123,6 +123,8 @@ def test_lightning_checkpoint_loads(tmp_path, files, reference):
     with pytest.raises(RuntimeError, match="fc4.bias"):
         predict.build_model("conv3d_sat_nwp", SMALL, checkpoint=str(bad))
     with pytest.raises(KeyError, match="no ported model"):
+        predict.build_model("conv3d_sat_nwp", {**SMALL, "_target_": "predict_pv_yield_tpu.models.flow_forecaster.X"})
+    with pytest.raises(ValueError, match="is not the model"):
         predict.build_model("conv3d_sat_nwp", {**SMALL, "_target_": "predict_pv_yield_tpu.models.conv3d.Model"})
 
 
