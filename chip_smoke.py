@@ -1,6 +1,7 @@
 """Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast, the
 conv3d_sat_nwp serve and train paths, the data path that feeds them, the
-perceiver family, and the rest of the single-device zoo with bf16.
+perceiver family, the rest of the single-device zoo with bf16, and the
+on-disk formats (NetCDF, blosc/LZ4, remote stores, the prepare step).
 
     python3 chip_smoke.py
 
@@ -89,14 +90,36 @@ Phases (any failure exits non-zero):
      ``conv3d_nwp``, ``001_cnn_concat``, ``002_cnn_rnn`` and
      ``003_perceiver_rnn`` configs, each ``last`` checkpoint loaded back
      bit for bit with fp32 parameters;
- 11. the ``kernels`` line, then the result line.
+ 11. formats, at the flagship's geometry (``FORMAT_*``): (a) ``csrc/lz4.cpp``
+     built with the host compiler (build seconds), the loaded library the
+     native one, native LZ4 equal to the plain Python codec on seeded
+     structured and random payloads of a satellite chunk's size, both
+     codecs' MB/s; (b) a v15 per-source tree of netCDF3 classic files
+     (this script's own CDF-2 writer: int16 channel-last satellite, CF
+     minutes, raw MW beside capacities), 24 train (8 unique) and 4 test
+     batches of 32, read back by ``NetCDFDataModule`` field for field as
+     written, the loader alone at 2 and 8 threads, ``train(config)`` with
+     the datamodule of ``netcdf_datamodule.yaml`` on the tree (steady
+     examples/s beside phase 7's cached batches) and the busy share of a
+     traced 8-step fit; (c) the same tree through ``file://`` (the remote
+     branch and its fetch into ``temp_path``), equal to (b); (d) a legacy
+     flat file, equal to what was written; (e) ``predict --data`` on the
+     tree, the CSV's rows, card vs CPU forecasts ≤ 1e-4 · max |y|; (f)
+     ``prepare`` from the learnable archive at 1 and 4 workers, byte-equal,
+     and ``compute_channel_stats`` against float64 numpy; (g) phase 8 (a)'s
+     archive with blosc-lz4 + shuffle satellite imagery: the loader alone
+     at 2 and 8 threads and one thread's share in decompression beside 8
+     (a)'s zlib numbers, and its channel statistics; (h) without h5py an
+     HDF5 file, without zstandard a blosc-zstd frame, raises naming the
+     package (with them: an HDF5 and a zstd round trip);
+ 12. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
 path (phases 3 and 4) and read just after; the serve, train, data,
-perceiver and zoo paths run no hand kernel (the JAX package computes them with XLA,
-outside any Pallas kernel; attention is PyTorch's
-``scaled_dot_product_attention``), and their phases check that ``sep_blur``
-launched 0 times.
+perceiver, zoo and formats paths run no hand kernel (the JAX package
+computes them with XLA, outside any Pallas kernel; attention is PyTorch's
+``scaled_dot_product_attention``; the LZ4 codec is host code), and their
+phases check that ``sep_blur`` launched 0 times.
 Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -280,6 +303,19 @@ ZOO_TRAIN_CONFIGS = {
     "003_perceiver_rnn": {**TRAIN_CONFIG, "model": PERCEIVERS["perceiver"], "seed": 42,
                           "trainer": {**TRAIN_CONFIG["trainer"], "precision": 16}},
 }
+
+
+#: phase 11: the on-disk formats at the flagship's geometry (phase 7's
+#: batches: ~51 MB each, ~1.4 GB for the tree): a v15 per-source tree of
+#: netCDF3 classic files, 24 train batches (8 unique) and 4 test batches,
+#: read by the datamodule of configs/datamodule/netcdf_datamodule.yaml (a
+#: literal; tests/test_torch_netcdf.py holds the two equal)
+FORMAT_TRAIN, FORMAT_UNIQUE, FORMAT_TEST = 24, 8, 4
+FORMAT_WORKERS = (2, 8)
+FORMAT_PREDICT_BATCHES = 2  # (e): the CPU side of predict --data stays cheap
+NETCDF_DATAMODULE = {"_target_": "predict_pv_yield_tpu.data.loader.NetCDFDataModule", "temp_path": ".",
+                     "n_train_data": 4000, "n_val_data": 400, "num_workers": 8, "pin_memory": True,
+                     "data_path": "data/prepared_ML_training_data/v15/", "fake_data": False, "shuffle_train": True}
 
 
 def log(message: str) -> None:
@@ -1125,11 +1161,12 @@ def phase_train(device, bandwidth, flops_peak):
             "train_busy_share": busy, "train_fit_seconds": fit_seconds, "train_peak_bytes": peak}
 
 
-def _stream_archive(root, seed=0):
+def _stream_archive(root, seed=0, compressor="zlib"):
     """Phase 8 (a)'s archives under ``root``, from ``seed``: the satellite
-    and NWP zarr stores (zlib, the port's writer) and the PVLive CSV; every
-    value follows the learnable brightness signal (``data/synthetic.py``).
-    Returns (satellite store, NWP store, CSV)."""
+    and NWP zarr stores (the port's writer; the satellite imagery with
+    ``compressor``, the rest zlib) and the PVLive CSV; every value follows
+    the learnable brightness signal (``data/synthetic.py``). Returns
+    (satellite store, NWP store, CSV, bytes before compression)."""
     import csv
     import os
 
@@ -1166,7 +1203,8 @@ def _stream_archive(root, seed=0):
     values = brightness_signal(valid).astype(np.float32)[:, None, :, None, None] * scale[None, :, None, None, None]
     values = np.round(values * gain * 16) / 16  # (init, variable, step, y, x) on a 1/16 grid
     nwp = os.path.join(root, "nwp.zarr")
-    write_zarr(os.path.join(sat, "data"), counts, chunks=(STREAM_CHUNK, len(channels), px, px))
+    write_zarr(os.path.join(sat, "data"), counts, chunks=(STREAM_CHUNK, len(channels), px, px),
+               compressor=compressor)
     write_zarr(os.path.join(nwp, "data"), values.astype(np.float32), chunks=(1, 10, STREAM_NWP_STEPS, px, px))
     write_zarr(os.path.join(nwp, "init_time"), inits.astype("datetime64[m]").astype(np.int64), chunks=(n_init,),
                attrs={"units": "minutes since 1970-01-01T00:00"})
@@ -1201,9 +1239,12 @@ def _data_model(device, configuration):
     return trainer
 
 
-def _loader_profile(dataset, top: int = 8):
+def _loader_profile(dataset, top: int = 8, tag: str = "[data] (a)"):
     """Where one thread's time goes building the batches of ``dataset``:
-    ``cProfile`` over all of them, the functions with the most own time."""
+    ``cProfile`` over all of them, the functions with the most own time.
+    Returns the shares of that thread's time in decompression: zlib's own
+    time, and the cumulative time of the blosc frame decode (the native LZ4
+    calls included)."""
     import cProfile
     import pstats
 
@@ -1214,19 +1255,36 @@ def _loader_profile(dataset, top: int = 8):
     profiler.disable()
     stats = pstats.Stats(profiler)
     examples = len(dataset) * dataset.batch_size
-    log(f"[data] (a) host profile of {len(dataset)} batches on one thread: {stats.total_tt:.3f} s, "
+    log(f"{tag} host profile of {len(dataset)} batches on one thread: {stats.total_tt:.3f} s, "
         f"{stats.total_tt / examples * 1e3:.3f} ms per example; most own time:")
     rows = sorted(stats.stats.items(), key=lambda item: -item[1][2])[:top]
+    phase = tag.split(" ")[0]
     for (filename, line, name), (_, calls, own, cumulative, _) in rows:
         where = f"{filename.rsplit('/', 1)[-1]}:{line}" if line else filename
-        log(f"[data]   {own / examples * 1e3:8.3f} ms/example own, {cumulative / examples * 1e3:8.3f} cumulative, "
+        log(f"{phase}   {own / examples * 1e3:8.3f} ms/example own, {cumulative / examples * 1e3:8.3f} cumulative, "
             f"{calls:6d} calls  {name} ({where})")
+    zlib_s = sum(own for (_, _, name), (_, _, own, _, _) in stats.stats.items() if "zlib.decompress" in name)
+    blosc_s = sum(cumulative for (filename, _, name), (_, _, _, cumulative, _) in stats.stats.items()
+                  if filename.endswith("blosc.py") and name == "decompress")
+    return {"zlib_share": zlib_s / stats.total_tt, "blosc_share": blosc_s / stats.total_tt,
+            "ms_per_example": stats.total_tt / examples * 1e3}
+
+
+def _stream_datamodule(sat, nwp, csv_path, workers, n_train=TRAIN_BATCHES, n_val=VAL_BATCHES):
+    """The zarr-stream datamodule over :func:`_stream_archive`'s archives at
+    the flagship's widths (batch 32, one GSP per example)."""
+    from predict_pv_yield_tpu_torch.data.loader import ZarrStreamDataModule
+
+    return ZarrStreamDataModule(
+        zarr_path=sat, nwp_zarr_path=nwp, nwp_image_size_pixels=CONV3D_SAT_NWP.get("nwp_image_size_pixels", 64),
+        gsp_csv=csv_path, n_gsp=1, batch_size=32, history_minutes=CONV3D_SAT_NWP["history_minutes"],
+        forecast_minutes=CONV3D_SAT_NWP["forecast_minutes"],
+        satellite_image_size_pixels=CONV3D_SAT_NWP["image_size_pixels"],
+        n_train_data=n_train, n_val_data=n_val, num_workers=workers)
 
 
 def _data_stream(device, tmp, cached):
     """(a) The zarr stream at the flagship's widths."""
-    from predict_pv_yield_tpu_torch.data.loader import ZarrStreamDataModule
-
     start = time.perf_counter()
     sat, nwp, csv_path, nbytes = _stream_archive(tmp)
     log(f"[data] (a) wrote the zarr archives ({STREAM_FRAMES} frames x {len(CONV3D_SAT_NWP_CHANNELS)} channels "
@@ -1235,12 +1293,7 @@ def _data_stream(device, tmp, cached):
         f"{time.perf_counter() - start:.2f} s")
 
     def datamodule(workers, n_train=TRAIN_BATCHES, n_val=VAL_BATCHES):
-        return ZarrStreamDataModule(
-            zarr_path=sat, nwp_zarr_path=nwp, nwp_image_size_pixels=CONV3D_SAT_NWP.get("nwp_image_size_pixels", 64),
-            gsp_csv=csv_path, n_gsp=1, batch_size=32, history_minutes=CONV3D_SAT_NWP["history_minutes"],
-            forecast_minutes=CONV3D_SAT_NWP["forecast_minutes"],
-            satellite_image_size_pixels=CONV3D_SAT_NWP["image_size_pixels"],
-            n_train_data=n_train, n_val_data=n_val, num_workers=workers)
+        return _stream_datamodule(sat, nwp, csv_path, workers, n_train, n_val)
 
     loader_rates = {}
     for workers in STREAM_WORKERS:
@@ -1252,7 +1305,8 @@ def _data_stream(device, tmp, cached):
         log(f"[data] (a) loader alone, num_workers {workers}: {LOADER_BATCHES} batches of 32 in {seconds:.3f} s, "
             f"{LOADER_BATCHES / seconds:.2f} batches/s, {loader_rates[workers]:.2f} examples/s")
     batch = batches[0]
-    _loader_profile(datamodule(0, n_train=2).train_dataloader().dataset)
+    profile = _loader_profile(datamodule(0, n_train=2).train_dataloader().dataset)
+    log(f"[data] (a) one loader thread's time in zlib: {profile['zlib_share']:.1%}")
     check(tuple(batch.satellite.data.shape) == (32, 11, 31, 24, 24) and tuple(batch.nwp.data.shape) ==
           (32, 10, 4, 64, 64) and tuple(batch.gsp.gsp_yield.shape) == (32, 6, 1), "zarr-stream batch shapes")
     check(all(bool(torch.isfinite(leaf.float()).all()) for leaf in batch.leaves()), "a non-finite streamed field")
@@ -1276,7 +1330,8 @@ def _data_stream(device, tmp, cached):
     log(f"[data] (a) device busy {busy:.1%} of a traced 8-step fit from the zarr stream ({wall * 1e3:.3f} ms; "
         f"cached batches, phase 7: {cached['train_busy_share']:.1%})")
     return {"stream_loader_examples_per_s_2": loader_rates[2], "stream_loader_examples_per_s_8": loader_rates[8],
-            "stream_train_examples_per_s": rate, "stream_busy_share": busy}
+            "stream_train_examples_per_s": rate, "stream_busy_share": busy,
+            "stream_zlib_share": profile["zlib_share"], "stream_ms_per_example": profile["ms_per_example"]}
 
 
 def _shard_batches(n, seed):
@@ -2139,6 +2194,572 @@ def phase_zoo(device, bandwidth, flops_peak, bf16_peak, serve, trained, perceive
     return results
 
 
+def _write_classic(path, variables):
+    """``variables`` {name: (dims, values[, {attribute: text}])} as a netCDF3
+    classic file in the 64-bit-offset format (CDF-2, the format xarray's
+    scipy engine writes): fixed-size variables, big-endian, 4-byte padded
+    (the same layout as ``tests/test_netcdf_reader.py``'s writer)."""
+    import struct
+
+    nc_type = {np.dtype("int16"): 3, np.dtype("int32"): 4, np.dtype("float32"): 5, np.dtype("float64"): 6}
+
+    def name(text):
+        raw = text.encode()
+        return struct.pack(">I", len(raw)) + raw + b"\0" * (-len(raw) % 4)
+
+    dims = {}
+    specs = []
+    for var, (dim_names, values, *attrs) in variables.items():
+        values = np.ascontiguousarray(values)
+        for dim, size in zip(dim_names, values.shape):
+            check(dims.setdefault(dim, size) == size, f"{path}: dimension {dim} of {var} has two sizes")
+        specs.append((var, dim_names, values, attrs[0] if attrs else {}))
+    ids = {dim: i for i, dim in enumerate(dims)}
+
+    def var_header(var, dim_names, values, attrs, begin):
+        raw = name(var) + struct.pack(">I", len(dim_names)) + b"".join(struct.pack(">I", ids[d]) for d in dim_names)
+        raw += struct.pack(">II", 0x0C if attrs else 0, len(attrs))
+        for key, text in attrs.items():
+            payload = text.encode()
+            raw += name(key) + struct.pack(">II", 2, len(payload)) + payload + b"\0" * (-len(payload) % 4)
+        return raw + struct.pack(">IIQ", nc_type[values.dtype], (values.nbytes + 3) & ~3, begin)
+
+    header = b"CDF\x02" + struct.pack(">III", 0, 0x0A, len(dims))
+    header += b"".join(name(dim) + struct.pack(">I", size) for dim, size in dims.items())
+    header += struct.pack(">IIII", 0, 0, 0x0B, len(specs))  # no global attributes; the variable list
+    begin = len(header) + sum(len(var_header(*spec, 0)) for spec in specs)
+    begins = []
+    for _, _, values, _ in specs:
+        begins.append(begin)
+        begin += (values.nbytes + 3) & ~3
+    with open(path, "wb") as fh:
+        fh.write(header + b"".join(var_header(*spec, at) for spec, at in zip(specs, begins)))
+        for _, _, values, _ in specs:
+            fh.write(values.astype(values.dtype.newbyteorder(">")).tobytes() + b"\0" * (-values.nbytes % 4))
+
+
+def _cf_minutes(values_ns):
+    """int64 ns since the epoch → (int32 minutes since the first value, CF
+    attributes): classic files have no 64-bit integers."""
+    values_ns = np.asarray(values_ns, np.int64)
+    origin = int(values_ns.flat[0])
+    minutes = (values_ns - origin) // 60_000_000_000
+    check(bool(np.all(minutes * 60_000_000_000 == values_ns - origin)) and np.abs(minutes).max() < 2**31,
+          "times that int32 minutes cannot hold")
+    epoch = str(np.datetime64(origin, "ns").astype("datetime64[s]")).replace("T", " ")
+    return minutes.astype(np.int32), {"units": f"minutes since {epoch}"}
+
+
+def _v15_classic(root, index, batch):
+    """``batch`` (CPU tensors, int16 satellite counts) as v15 per-source
+    classic files ``<root>/<source>/{index:06d}.nc``, laid out as the JAX
+    package's ``write_v15_batch`` lays out its HDF5 files (satellite and HRV
+    channel-last, raw MW beside capacities, CF times) → the fields the
+    reader must give back, by (group, field), in its own terms."""
+    import os
+
+    sat, nwp, pv, gsp = batch.satellite, batch.nwp, batch.pv, batch.gsp
+    n = lambda x: x.numpy()  # noqa: E731
+    sat_wire = n(sat.data).transpose(0, 2, 3, 4, 1)
+    hrv_wire = n(batch.hrvsatellite.data).transpose(0, 2, 3, 4, 1)
+    pv_capacity = np.full((pv.pv_yield.shape[0], pv.pv_yield.shape[2]), 10.0, np.float32)
+    pv_power = n(pv.pv_yield) * np.float32(10.0)
+    gsp_power = n(gsp.gsp_yield) * n(gsp.gsp_capacity)
+    files = {
+        "satellite": {"data": (("example", "time_index", "y_geostationary_index", "x_geostationary_index",
+                                "channels_index"), sat_wire),
+                      "x_osgb": (("example", "x_geostationary_index"), n(sat.x)),
+                      "y_osgb": (("example", "y_geostationary_index"), n(sat.y)),
+                      "time": (("example", "time_index"), *_cf_minutes(n(sat.datetime_index)))},
+        "nwp": {"data": (("example", "channels_index", "time_index", "y_osgb_index", "x_osgb_index"), n(nwp.data)),
+                "target_time": (("example", "time_index"), *_cf_minutes(n(nwp.target_time)))},
+        "pv": {"power_mw": (("example", "time_index", "id_index"), pv_power),
+               "capacity_mwp": (("example", "id_index"), pv_capacity),
+               "pv_system_row_number": (("example", "id_index"), n(pv.pv_system_row_number)),
+               "id": (("example", "id_index"), n(pv.pv_system_id))},
+        "gsp": {"power_mw": (("example", "time_index", "id_index"), gsp_power),
+                "capacity_mwp": (("example", "time_index", "id_index"), n(gsp.gsp_capacity)),
+                "id": (("example", "id_index"), n(gsp.gsp_id)),
+                "time": (("example", "time_index"), *_cf_minutes(n(gsp.gsp_datetime_index)))},
+        "sun": {"elevation": (("example", "time_index"), n(batch.sun.sun_elevation_angle)),
+                "azimuth": (("example", "time_index"), n(batch.sun.sun_azimuth_angle))},
+        "topographic": {"data": (("example", "y_index", "x_index"), n(batch.topographic.topo_data))},
+        "hrvsatellite": {"data": (("example", "time_index", "y_index", "x_index", "channels_index"), hrv_wire)},
+        "metadata": {"t0_datetime_utc": (("example",), *_cf_minutes(n(batch.metadata.t0_datetime_utc)))},
+    }
+    for source, variables in files.items():
+        os.makedirs(os.path.join(root, source), exist_ok=True)
+        _write_classic(os.path.join(root, source, f"{index:06d}.nc"), variables)
+    with np.errstate(divide="ignore", invalid="ignore"):  # the reader's normalisation of raw MW
+        pv_yield = np.where(pv_capacity[:, None] > 0, pv_power / pv_capacity[:, None], 0.0).astype(np.float32)
+        gsp_yield = np.where(n(gsp.gsp_capacity) > 0, gsp_power / n(gsp.gsp_capacity), 0.0).astype(np.float32)
+    return {("satellite", "data"): sat_wire, ("satellite", "x"): n(sat.x), ("satellite", "y"): n(sat.y),
+            ("satellite", "datetime_index"): n(sat.datetime_index), ("nwp", "data"): n(nwp.data),
+            ("nwp", "target_time"): n(nwp.target_time), ("pv", "pv_yield"): pv_yield,
+            ("pv", "pv_system_row_number"): n(pv.pv_system_row_number), ("pv", "pv_system_id"): n(pv.pv_system_id),
+            ("gsp", "gsp_yield"): gsp_yield, ("gsp", "gsp_id"): n(gsp.gsp_id),
+            ("gsp", "gsp_capacity"): n(gsp.gsp_capacity), ("gsp", "gsp_datetime_index"): n(gsp.gsp_datetime_index),
+            ("sun", "sun_elevation_angle"): n(batch.sun.sun_elevation_angle),
+            ("sun", "sun_azimuth_angle"): n(batch.sun.sun_azimuth_angle),
+            ("topographic", "topo_data"): n(batch.topographic.topo_data), ("hrvsatellite", "data"): hrv_wire,
+            ("metadata", "t0_datetime_utc"): n(batch.metadata.t0_datetime_utc)}
+
+
+def _check_read(batch, expected, what):
+    """``batch`` holds exactly the ``expected`` fields, each equal in dtype,
+    shape and value, and the channel-last markers of the wire."""
+    import dataclasses
+
+    for group in dataclasses.fields(batch):
+        for f in dataclasses.fields(getattr(batch, group.name)):
+            value = getattr(getattr(batch, group.name), f.name)
+            if f.name == "channel_last":
+                check(value is ((group.name, "data") in expected and group.name in ("satellite", "hrvsatellite")),
+                      f"{what}: {group.name}.channel_last {value}")
+                continue
+            want = expected.get((group.name, f.name))
+            check((value is None) == (want is None), f"{what}: {group.name}.{f.name} set {value is not None}")
+            if want is None:
+                continue
+            got = value.numpy()
+            check(got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want),
+                  f"{what}: {group.name}.{f.name} differs from what was written")
+
+
+def _format_tree(tmp):
+    """(b) The v15 classic tree at the flagship's geometry: 24 train batches
+    (from 8 unique ones) and 4 test batches, and ``configuration.yaml`` →
+    (tree, the fields each train and test batch must read back as, the
+    dataset configuration)."""
+    import os
+
+    root = os.path.join(tmp, "v15")
+    start = time.perf_counter()
+    unique = list(_shard_batches(FORMAT_UNIQUE + FORMAT_TEST, seed=11))
+    configuration = unique[0][0]
+    expected = {"train": [], "test": []}
+    for i in range(FORMAT_TRAIN):
+        expected["train"].append(_v15_classic(os.path.join(root, "train"), i, unique[i % FORMAT_UNIQUE][2]))
+    for i in range(FORMAT_TEST):
+        expected["test"].append(_v15_classic(os.path.join(root, "test"), i, unique[FORMAT_UNIQUE + i][2]))
+    with open(os.path.join(root, "configuration.yaml"), "w") as fh:
+        fh.write(_yaml_configuration(configuration))
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(os.path.join(root, "train"))
+                 for f in files)
+    log(f"[formats] (b) wrote the v15 classic tree: {FORMAT_TRAIN} train batches ({FORMAT_UNIQUE} unique) + "
+        f"{FORMAT_TEST} test batches of 32 at the flagship's geometry, {nbytes / FORMAT_TRAIN / 1e6:.1f} MB a batch "
+        f"in 8 files: {time.perf_counter() - start:.2f} s")
+    return root, expected, configuration
+
+
+def _format_loader(device, tmp, tree, expected, trained):
+    """(b) The NetCDF datamodule over the tree: batches equal to the arrays
+    written, the loader alone at 2 and 8 threads, ``train(config)`` with the
+    datamodule of ``netcdf_datamodule.yaml`` (steady examples/s), the busy
+    share of a traced 8-step fit."""
+    import copy
+    import os
+
+    from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule
+    from predict_pv_yield_tpu_torch.data.netcdf_reader import NetCDFBatchDataset
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+    from predict_pv_yield_tpu_torch.training.pipeline import train
+
+    def datamodule(workers, n_train=FORMAT_TRAIN, n_val=FORMAT_TEST, **kwargs):
+        return NetCDFDataModule(data_path=tree, num_workers=workers, n_train_data=n_train, n_val_data=n_val, **kwargs)
+
+    dm = datamodule(8)
+    check(tuple(dm.configuration.input_data.satellite.satellite_channels) == CONV3D_SAT_NWP_CHANNELS,
+          "the tree's configuration.yaml")
+    start = time.perf_counter()
+    for split, loader in (("train", dm.train_dataloader()), ("test", dm.val_dataloader())):
+        check(isinstance(loader.dataset, NetCDFBatchDataset), f"the {split} split is not read as NetCDF")
+        for i, want in enumerate(expected[split]):
+            _check_read(loader.dataset[i], want, f"{split} batch {i}")
+    log(f"[formats] (b) all {FORMAT_TRAIN} + {FORMAT_TEST} batches read back field for field as written "
+        f"(int16 channel-last satellite, CF minutes to ns, MW to yields): {time.perf_counter() - start:.2f} s")
+
+    rates = {}
+    for workers in FORMAT_WORKERS:
+        loader = datamodule(workers).train_dataloader()
+        start = time.perf_counter()
+        batches = list(loader)
+        seconds = time.perf_counter() - start
+        check(len(batches) == FORMAT_TRAIN and batches[0].satellite.channel_last, "the NetCDF loader's batches")
+        rates[workers] = FORMAT_TRAIN * 32 / seconds
+        log(f"[formats] (b) loader alone, num_workers {workers}: {FORMAT_TRAIN} batches of 32 in {seconds:.3f} s, "
+            f"{rates[workers]:.2f} examples/s")
+    del batches
+
+    marks = []
+    step = Trainer.train_step
+
+    def marked_step(self, batch):
+        metrics = step(self, batch)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return metrics
+
+    cwd = os.getcwd()
+    os.makedirs(os.path.join(tmp, "pipeline"))
+    os.chdir(os.path.join(tmp, "pipeline"))
+    config = copy.deepcopy(TRAIN_CONFIG)
+    config["datamodule"] = {**NETCDF_DATAMODULE, "data_path": tree, "n_train_data": FORMAT_TRAIN,
+                            "n_val_data": FORMAT_TEST}
+    Trainer.train_step = marked_step
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metric = train(config)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        Trainer.train_step = step
+        os.chdir(cwd)
+    check(len(marks) == FORMAT_TRAIN, f"train(config) ran {len(marks)} train steps")
+    check(metric is not None and np.isfinite(metric), f"optimized_metric {metric}")
+    check(os.path.exists(os.path.join(tmp, "pipeline", "checkpoints", "last", "state.pt")), "no last checkpoint")
+    gaps = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])][-STEADY_STEPS:]
+    rate = float(np.median([32e3 / gap for gap in gaps]))
+    log(f"[formats] (b) train(config) with the datamodule of netcdf_datamodule.yaml on the tree "
+        f"({FORMAT_TRAIN}x32 train + {FORMAT_TEST}x32 validation batches, num_workers 8, checkpoints and the test "
+        f"pass): {seconds:.3f} s, {config['optimized_metric']} {metric:.6f}; steady pace of the last {STEADY_STEPS} "
+        f"steps {np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s (cached batches, phase 7: "
+        f"{trained['train_examples_per_s']:.2f})")
+
+    traced = _data_model(device, dm.configuration)
+    steps = min(8, FORMAT_TRAIN)
+    short = datamodule(8, n_train=steps, n_val=1)
+    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=short), warm=False)
+    log(f"[formats] (b) device busy {busy:.1%} of a traced {steps}-step fit from the NetCDF tree ({wall * 1e3:.3f} ms; "
+        f"cached batches, phase 7: {trained['train_busy_share']:.1%})")
+    return {"netcdf_loader_examples_per_s_2": rates[2], "netcdf_loader_examples_per_s_8": rates[8],
+            "netcdf_train_examples_per_s": rate, "netcdf_busy_share": busy, "netcdf_train_seconds": seconds}
+
+
+def _format_remote(tmp, tree, expected):
+    """(c) The tree through ``file://``: the remote branch, its fetch of
+    every file into ``temp_path``, and the same batches as (b)."""
+    import os
+
+    from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule
+    from predict_pv_yield_tpu_torch.data.netcdf_reader import NetCDFBatchDataset
+
+    fetched = os.path.join(tmp, "fetched")
+    start = time.perf_counter()
+    dm = NetCDFDataModule(data_path=f"file://{tree}", temp_path=fetched, num_workers=8,
+                          n_train_data=FORMAT_TRAIN, n_val_data=FORMAT_TEST)
+    check(tuple(dm.configuration.input_data.satellite.satellite_channels) == CONV3D_SAT_NWP_CHANNELS,
+          "configuration.yaml through fsspec")
+    for split, loader in (("train", dm.train_dataloader()), ("test", dm.val_dataloader())):
+        check(isinstance(loader.dataset, NetCDFBatchDataset) and "://" in loader.dataset.src_path,
+              f"the remote {split} split")
+        for i, want in enumerate(expected[split]):
+            _check_read(loader.dataset[i], want, f"file:// {split} batch {i}")
+    files = sum(len(names) for _, _, names in os.walk(fetched))
+    seconds = time.perf_counter() - start
+    log(f"[formats] (c) the same tree through file://: {files} files fetched into temp_path, all "
+        f"{FORMAT_TRAIN} + {FORMAT_TEST} batches equal to (b)'s: {seconds:.2f} s")
+    return {"remote_seconds": seconds}
+
+
+def _format_legacy(tmp, expected):
+    """(d) One legacy flat file (``sat_data``, ``nwp``, ``pv_yield``, …)."""
+    import os
+
+    from predict_pv_yield_tpu_torch.data.netcdf_reader import NetCDFBatchDataset
+
+    want = expected["test"][0]
+    rng = np.random.default_rng(12)
+    b, t = want[("satellite", "datetime_index")].shape
+    features = {name: rng.uniform(-1, 1, (b, t)).astype(np.float32)
+                for name in ("hour_of_day_sin", "hour_of_day_cos", "day_of_year_sin", "day_of_year_cos")}
+    variables = {
+        "sat_data": (("example", "time", "y", "x", "channels"), want[("satellite", "data")]),
+        "sat_x_coords": (("example", "x"), want[("satellite", "x")]),
+        "sat_y_coords": (("example", "y"), want[("satellite", "y")]),
+        "sat_datetime_index": (("example", "time"), *_cf_minutes(want[("satellite", "datetime_index")])),
+        "nwp": (("example", "nwp_channels", "nwp_time", "y_osgb", "x_osgb"), want[("nwp", "data")]),
+        "nwp_target_time": (("example", "nwp_time"), *_cf_minutes(want[("nwp", "target_time")])),
+        "pv_yield": (("example", "time", "pv_system"), want[("pv", "pv_yield")]),
+        "pv_system_id": (("example", "pv_system"), want[("pv", "pv_system_id")]),
+        "pv_system_row_number": (("example", "pv_system"), want[("pv", "pv_system_row_number")]),
+        **{name: (("example", "time"), values) for name, values in features.items()},
+    }
+    root = os.path.join(tmp, "legacy", "test")
+    os.makedirs(root)
+    _write_classic(os.path.join(root, "000000.nc"), variables)
+    batch = NetCDFBatchDataset(1, root)[0]
+    legacy = {key: want[key] for key in want if key[0] in ("satellite", "nwp", "pv")}
+    legacy.update({("datetime", name): values for name, values in features.items()})
+    _check_read(batch, legacy, "the legacy file")
+    log(f"[formats] (d) a legacy flat file ({len(variables)} variables, {os.path.getsize(os.path.join(root, '000000.nc')) / 1e6:.1f} MB) "
+        "read back field for field as written")
+
+
+def _format_predict(device, tmp, tree):
+    """(e) ``predict --data`` on the tree, on the card and on the CPU with
+    the same seed-0 weights: the CSV's rows and the forecasts' agreement."""
+    import contextlib
+    import io
+    import os
+
+    from predict_pv_yield_tpu_torch import predict as serve
+
+    config_path = os.path.join(tmp, "conv3d_sat_nwp.yaml")
+    with open(config_path, "w") as fh:
+        json.dump(CONV3D_SAT_NWP, fh)  # JSON is YAML
+    forecasts = {}
+    for where, label in ((device, "card"), ("cpu", "CPU")):
+        out = os.path.join(tmp, f"forecasts_{label}.csv")
+        printed = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = serve.main(["--model", "conv3d_sat_nwp", "--model-config", config_path, "--data", tree,
+                                 "--n-batches", str(FORMAT_PREDICT_BATCHES), "--out", out, "--nmae",
+                                 "--device", str(where)])
+        seconds = time.perf_counter() - start
+        rows = np.loadtxt(out, delimiter=",", skiprows=1)
+        expected_rows = FORMAT_PREDICT_BATCHES * 32 * 4
+        check(rows.shape == (expected_rows, 4) and result["rows"] == expected_rows,
+              f"predict --data wrote {rows.shape[0]} rows, expected {expected_rows}")
+        check(bool(np.isfinite(rows[:, 3]).all()) and np.isfinite(result["nmae"]), "a non-finite forecast")
+        forecasts[label] = rows[:, 3]
+        log(f"[formats] (e) predict --data on the tree, on the {label}: {expected_rows} rows, "
+            f"NMAE {result['nmae']:.6f}, {seconds:.2f} s")
+    err = float(np.abs(forecasts["card"] - forecasts["CPU"]).max())
+    scale = float(np.abs(forecasts["CPU"]).max())
+    log(f"[formats] (e) card vs CPU forecasts: max abs diff {err:.3e}, limit {SERVE_TOL} x max |y| {scale:.4f}")
+    check(err <= SERVE_TOL * scale, "predict --data: the card's forecasts disagree with the CPU's")
+    return {"predict_data_err": err, "predict_data_err_limit": SERVE_TOL * scale}
+
+
+def _stats_reference(array, channel_axis):
+    """Per-channel mean, std, min, max and count in float64 numpy (−1 is missing)."""
+    values = np.moveaxis(np.asarray(array), channel_axis, -1)
+    decoded = np.where(values == -1, np.nan, values.astype(np.float64))
+    axes = tuple(range(decoded.ndim - 1))
+    return (np.nanmean(decoded, axis=axes), np.nanstd(decoded, axis=axes), np.nanmin(decoded, axis=axes),
+            np.nanmax(decoded, axis=axes), (~np.isnan(decoded)).sum(axis=axes))
+
+
+def _check_stats(stats, array, channel_axis, what):
+    """``compute_channel_stats``' table against :func:`_stats_reference` →
+    the largest relative difference of a mean or std."""
+    mean, std, lo, hi, count = _stats_reference(array, channel_axis)
+    worst = 0.0
+    for i, row in enumerate(stats.values()):
+        check(row["count"] == count[i] and (row["min"], row["max"]) == (lo[i], hi[i]), f"{what}: channel {i}")
+        for got, want in ((row["mean"], mean[i]), (row["std"], std[i])):
+            worst = max(worst, abs(got - want) / max(abs(want), 1e-300))
+    check(worst <= 1e-9, f"{what}: mean or std {worst:.2e} from the float64 numpy computation")
+    return worst
+
+
+def _format_prepare(tmp):
+    """(f) ``prepare`` from the learnable zarr archive: raw shards at 1 and
+    4 workers byte-equal; ``compute_channel_stats`` over its satellite
+    archive against float64 numpy."""
+    import contextlib
+    import filecmp
+    import io
+    import os
+
+    from predict_pv_yield_tpu_torch import compute_channel_stats, prepare
+    from predict_pv_yield_tpu_torch.data import synthetic
+    from predict_pv_yield_tpu_torch.data.zarr_reader import open_zarr
+
+    archive = synthetic.make_learnable_archive(os.path.join(tmp, "learnable"), n_frames=288, px=24, n_gsp=4,
+                                               seed=0, with_nwp=True)
+    args = ["--satellite-zarr", archive.satellite_zarr, "--nwp-zarr", archive.nwp_zarr, "--gsp-csv",
+            archive.gsp_csv, "--n-gsp", "4", "--nwp-pixels", "24", "--n-train", "8", "--n-test", "2",
+            "--format", "raw", "--seed", "3"]
+    seconds = {}
+    for workers in (1, 4):
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            prepare.main(["--out", os.path.join(tmp, f"prepared_{workers}"), *args, "--workers", str(workers)])
+        seconds[workers] = time.perf_counter() - start
+    names = sorted(os.path.relpath(os.path.join(d, f), os.path.join(tmp, "prepared_1"))
+                   for d, _, files in os.walk(os.path.join(tmp, "prepared_1")) for f in files)
+    check(len(names) == 11, f"prepare wrote {len(names)} files")
+    match, mismatch, errors = filecmp.cmpfiles(os.path.join(tmp, "prepared_1"), os.path.join(tmp, "prepared_4"),
+                                               names, shallow=False)
+    check(not mismatch and not errors, f"prepare at 1 and 4 workers differs in {mismatch + errors}")
+    log(f"[formats] (f) prepare from the learnable archive, 8 + 2 raw shards of 32: {seconds[1]:.2f} s at "
+        f"--workers 1, {seconds[4]:.2f} s at --workers 4; the {len(match)} files byte-equal")
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = compute_channel_stats.main([archive.satellite_zarr, "--member", "data"])
+    worst = _check_stats(stats, open_zarr(archive.satellite_zarr, "data")[:], -1, "the learnable archive")
+    log(f"[formats] (f) compute_channel_stats over the learnable satellite archive ({len(stats)} channels on the "
+        f"trailing axis): counts, min and max equal, mean and std within {worst:.1e} of float64 numpy")
+    return {"prepare_seconds_1": seconds[1], "prepare_seconds_4": seconds[4]}
+
+
+def _format_blosc(tmp, data):
+    """(g) Phase 8 (a)'s flagship satellite archive in blosc-lz4 with byte
+    shuffle, streamed as 8 (a) streams the zlib one: the loader alone at 2
+    and 8 threads and the share of one thread's time in decompression."""
+    import contextlib
+    import io
+    import os
+
+    from predict_pv_yield_tpu_torch.compute_channel_stats import main as channel_stats_main
+    from predict_pv_yield_tpu_torch.data.zarr_reader import open_zarr
+
+    start = time.perf_counter()
+    sat, nwp, csv_path, nbytes = _stream_archive(os.path.join(tmp, "blosc"), compressor="blosc")
+    stored = sum(os.path.getsize(os.path.join(sat, "data", f)) for f in os.listdir(os.path.join(sat, "data")))
+    log(f"[formats] (g) wrote phase 8 (a)'s archives with the satellite imagery in blosc-lz4 + shuffle "
+        f"({STREAM_FRAMES} frames x {len(CONV3D_SAT_NWP_CHANNELS)} channels at {STREAM_PX} px, "
+        f"{stored / 1e6:.1f} MB stored): {time.perf_counter() - start:.2f} s")
+
+    rates = {}
+    for workers in STREAM_WORKERS:
+        loader = _stream_datamodule(sat, nwp, csv_path, workers, n_train=LOADER_BATCHES).train_dataloader()
+        start = time.perf_counter()
+        batches = list(loader)
+        seconds = time.perf_counter() - start
+        rates[workers] = LOADER_BATCHES * 32 / seconds
+        log(f"[formats] (g) loader alone from the blosc archive, num_workers {workers}: {LOADER_BATCHES} batches of "
+            f"32 in {seconds:.3f} s, {rates[workers]:.2f} examples/s (zlib, phase 8 (a): "
+            f"{data[f'stream_loader_examples_per_s_{workers}']:.2f})")
+    px = CONV3D_SAT_NWP["image_size_pixels"]
+    check(tuple(batches[0].satellite.data.shape) == (32, 11, 31, px, px), "blosc-stream batch shapes")
+    profile = _loader_profile(_stream_datamodule(sat, nwp, csv_path, 0, n_train=2).train_dataloader().dataset,
+                              tag="[formats] (g)")
+    log(f"[formats] (g) one loader thread's time in decompression: blosc-lz4 {profile['blosc_share']:.1%} "
+        f"(satellite), zlib {profile['zlib_share']:.1%} (NWP); {profile['ms_per_example']:.3f} ms per example "
+        f"(phase 8 (a), all zlib: {data['stream_zlib_share']:.1%} in zlib, {data['stream_ms_per_example']:.3f} ms "
+        f"per example)")
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the CLI's JSON table
+        stats = channel_stats_main([sat, "--member", "data", "--channel-axis", "1"])
+    seconds = time.perf_counter() - start
+    worst = _check_stats(stats, open_zarr(sat, "data")[:], 1, "the blosc archive")
+    log(f"[formats] (g) compute_channel_stats over the blosc archive: {len(stats)} channels in {seconds:.2f} s, "
+        f"mean and std within {worst:.1e} of float64 numpy")
+    return {"blosc_loader_examples_per_s_2": rates[2], "blosc_loader_examples_per_s_8": rates[8],
+            "blosc_share": profile["blosc_share"], "blosc_zlib_share": profile["zlib_share"],
+            "blosc_ms_per_example": profile["ms_per_example"]}
+
+
+def _format_lz4():
+    """(a) The LZ4 codec: built from ``csrc/lz4.cpp``, the native library
+    loaded, native equal to plain on seeded payloads of a satellite chunk's
+    size, and both codecs' rates."""
+    from predict_pv_yield_tpu_torch import _build, native
+
+    start = time.perf_counter()
+    lib = native.load_library()
+    seconds = time.perf_counter() - start
+    check(lib._name == str(_build.library_path("lz4")), f"the loaded LZ4 library is {lib._name}")
+    log(f"[formats] (a) lz4.cpp: {seconds:.2f} s (c++ {_build.build_info['lz4']['seconds']:.2f} s), "
+        f"loaded {lib._name}")
+    rng = np.random.default_rng(8)
+    chunk = (STREAM_CHUNK, len(CONV3D_SAT_NWP_CHANNELS), STREAM_PX, STREAM_PX)
+    smooth = np.cumsum(rng.integers(-2, 3, chunk), axis=-1) + 500
+    structured = native.byte_shuffle(np.clip(smooth, 0, 1023).astype(np.int16).tobytes(), 2)
+    random = rng.integers(0, 256, len(structured), dtype=np.uint8).tobytes()
+    rates = {}
+    for label, payload in (("structured", structured), ("random", random)):
+        packed = native.lz4_compress(payload)
+        for block in (packed, native.lz4_compress_plain(payload)):
+            check(native.lz4_decompress(block, len(payload)) == payload, f"native LZ4 round trip ({label})")
+            check(native.lz4_decompress_plain(block, len(payload)) == payload, f"plain LZ4 decode ({label})")
+        check(native.byte_unshuffle(payload, 2) == native.byte_unshuffle_plain(payload, 2), "the shuffle")
+        reps = 20
+        start = time.perf_counter()
+        for _ in range(reps):
+            native.lz4_decompress(packed, len(payload))
+        native_rate = reps * len(payload) / (time.perf_counter() - start) / 1e6
+        start = time.perf_counter()
+        native.lz4_decompress_plain(packed, len(payload))
+        plain_rate = len(payload) / (time.perf_counter() - start) / 1e6
+        rates[label] = {"ratio": len(payload) / len(packed), "native_mb_s": native_rate, "plain_mb_s": plain_rate}
+        log(f"[formats] (a) {label} payload of {len(payload) / 1e6:.2f} MB (a shuffled satellite chunk's size): "
+            f"ratio {len(payload) / len(packed):.2f}, decode native {native_rate:.1f} MB/s, plain Python "
+            f"{plain_rate:.2f} MB/s; native and plain agree")
+    return {"lz4_build_seconds": _build.build_info["lz4"]["seconds"], "lz4": rates}
+
+
+def _format_packages(tmp):
+    """(h) The optional packages: without h5py an HDF5 file raises naming
+    it, with h5py a v15 HDF5 batch round-trips; without zstandard a
+    blosc-zstd frame raises naming it, with it a zstd frame round-trips."""
+    import importlib.util
+    import os
+    import struct
+
+    from predict_pv_yield_tpu_torch.data import blosc
+    from predict_pv_yield_tpu_torch.data.netcdf_reader import NetCDFBatchDataset, read_netcdf_variables
+    from predict_pv_yield_tpu_torch.data.netcdf_writer import write_v15_batch
+
+    found = {name: importlib.util.find_spec(name) is not None for name in ("h5py", "zstandard")}
+    payload = np.arange(40_000, dtype=np.int16).tobytes()
+    if found["h5py"]:
+        configuration, _, batch = next(_shard_batches(1, seed=13))
+        write_v15_batch(os.path.join(tmp, "hdf5"), 0, batch)
+        read = NetCDFBatchDataset(1, os.path.join(tmp, "hdf5"))[0]
+        check(torch.equal(read.satellite.data, batch.satellite.data.permute(0, 2, 3, 4, 1)), "HDF5 round trip")
+        log("[formats] (h) h5py imports: a v15 HDF5 batch written by the port's writer reads back equal")
+    else:
+        path = os.path.join(tmp, "hdf5.nc")
+        with open(path, "wb") as fh:
+            fh.write(b"\x89HDF\r\n\x1a\n" + bytes(504))
+        try:
+            read_netcdf_variables(path)
+            raised = None
+        except ImportError as exc:
+            raised = str(exc)
+        check(raised is not None and "h5py" in raised, f"an HDF5 file without h5py: {raised}")
+        log(f"[formats] (h) h5py missing: an HDF5 file raises ImportError: {raised}")
+    if found["zstandard"]:
+        frame = blosc.compress(payload, typesize=2, cname="zstd")
+        check(blosc.decompress(frame) == payload, "zstd round trip")
+        log("[formats] (h) zstandard imports: a blosc-zstd frame round-trips")
+    else:
+        stream = bytes(64)  # any payload smaller than its block is a compressed stream
+        frame = bytes([2, 2, 4 << 5, 1]) + struct.pack("<III", 1024, 1024, 16 + 4 + 4 + len(stream))
+        frame += struct.pack("<II", 20, len(stream)) + stream
+        try:
+            blosc.decompress(frame)
+            raised = None
+        except ImportError as exc:
+            raised = str(exc)
+        check(raised is not None and "zstandard" in raised, f"a blosc-zstd frame without zstandard: {raised}")
+        log(f"[formats] (h) zstandard missing: a blosc-zstd frame raises ImportError: {raised}")
+    return {"packages": found}
+
+
+def phase_formats(device, trained, data):
+    """Phase 11: the on-disk formats at the flagship's widths — the LZ4
+    codec, a v15 classic NetCDF tree through the loader, ``train(config)``
+    and ``file://``, a legacy file, ``predict --data``, ``prepare`` and the
+    channel statistics, a blosc archive streamed, the optional packages."""
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    blur.launches = 0
+    start = time.perf_counter()
+    results = _format_lz4()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, expected, _ = _format_tree(tmp)
+        results.update(_format_loader(device, tmp, tree, expected, trained))
+        results.update(_format_remote(tmp, tree, expected))
+        _format_legacy(tmp, expected)
+        results.update(_format_predict(device, tmp, tree))
+        del expected
+        results.update(_format_prepare(tmp))
+        results.update(_format_blosc(tmp, data))
+        results.update(_format_packages(tmp))
+    check(blur.launches == 0, "the formats phase launched sep_blur")
+    results["seconds"] = time.perf_counter() - start
+    log(f"[formats] phase 11: {results['seconds']:.2f} s")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -2170,6 +2791,7 @@ def main() -> int:
     data = phase_data(device, trained)
     perceivers = phase_perceiver(device, bandwidth, flops_peak, data["baseline_nmae"])
     zoo = phase_zoo(device, bandwidth, flops_peak, bf16_peak, serve, trained, perceivers, data["baseline_nmae"])
+    formats = phase_formats(device, trained, data)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -2190,7 +2812,7 @@ def main() -> int:
         "call_ms": headline["call_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
-                    **trained, **data, "perceivers": perceivers, "zoo": zoo}))
+                    **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library goes to
-``build/torch_kernels/`` at the repository root, named by a hash of its
-source, the ``csrc/*.cuh`` headers and the flags: a changed source or
-header rebuilds, an unchanged one is reused.
-Nothing is built at import time; the first call that needs a kernel builds
+headers, so a build takes seconds). Each ``csrc/<name>.cpp`` is host code
+(the LZ4 codec) and is compiled the same way by the host compiler (``$CXX``,
+else ``c++``). The library goes to ``build/torch_kernels/`` at the
+repository root, named by a hash of its source, the ``csrc/*.cuh`` headers
+(CUDA sources only) and the flags: a changed source or header rebuilds, an
+unchanged one is reused. A failed build raises with the compiler's output.
+Nothing is built at import time; the first call that needs a library builds
 it.
 """
 
@@ -34,10 +36,11 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",
 )
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-#: per kernel: {"seconds": build time (0.0 when reused), "log": nvcc output}
+#: per library: {"seconds": build time (0.0 when reused), "log": compiler output}
 build_info: dict[str, dict] = {}
 
 
@@ -52,16 +55,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
 
 
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "c++"))
+    if found:
+        return found
+    raise RuntimeError("no host C++ compiler ($CXX or c++) on PATH")
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu`` where it exists, else ``csrc/<name>.cpp``."""
+    cuda = CSRC / f"{name}.cu"
+    return cuda if cuda.exists() else CSRC / f"{name}.cpp"
+
+
 def library_path(name: str) -> Path:
-    # the source and every header beside it, so that a changed header rebuilds
-    files = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
-    source = b"".join(f.read_bytes() for f in files)
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source = _source(name)
+    if source.suffix == ".cu":
+        # the source and every header beside it, so that a changed header rebuilds
+        files, flags = [source, *sorted(CSRC.glob("*.cuh"))], NVCC_FLAGS
+    else:
+        files, flags = [source], HOST_FLAGS
+    data = b"".join(f.read_bytes() for f in files)
+    digest = hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu`` or ``csrc/<name>.cpp``,
+    building it if needed."""
     with _lock:
         if name in _loaded:
             return _loaded[name]
@@ -74,14 +95,18 @@ def load(name: str) -> ctypes.CDLL:
             # never loads a half-written library
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            source = _source(name)
+            if source.suffix == ".cu":
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+            else:
+                cmd = [_cxx(), *HOST_FLAGS, "-o", tmp, str(source)]
             start = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - start
             if proc.returncode != 0:
                 os.unlink(tmp)
                 raise RuntimeError(
-                    f"nvcc failed for {name}.cu ({proc.returncode}):\n"
+                    f"{cmd[0]} failed for {source.name} ({proc.returncode}):\n"
                     f"{proc.stdout}{proc.stderr}"
                 )
             os.replace(tmp, target)

@@ -1,12 +1,12 @@
 """Data modules: whole-batch datasets → host prefetch (a port of the JAX
 package's ``data/loader.py``: ``PrefetchingLoader``, ``NetCDFDataModule``
-over fake data or prepared shards, ``ZarrStreamDataModule`` and
+over fake data, prepared shards or the reference's NetCDF batch files,
+local or remote through fsspec, ``ZarrStreamDataModule`` and
 ``get_dataloaders``).
 
 The dataset yields whole batches of CPU tensors, as the reference's
 ``DataLoader(batch_size=None)`` does. The host → device copy is the
-trainer's (``predict.iter_batches``: pinned buffers, a copy stream). The
-NetCDF reader is not ported yet (ROADMAP M16b), nor are remote paths (M9).
+trainer's (``predict.iter_batches``: pinned buffers, a copy stream).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import numpy as np
 
 from predict_pv_yield_tpu_torch.config.dataset import Configuration, load_yaml_configuration
 from predict_pv_yield_tpu_torch.data.fake import FakeDataset
-from predict_pv_yield_tpu_torch.data.netcdf_reader import _V15_SOURCES
+from predict_pv_yield_tpu_torch.data.netcdf_reader import _V15_SOURCES, NetCDFBatchDataset
 from predict_pv_yield_tpu_torch.data.shards import ShardDataset
 from predict_pv_yield_tpu_torch.data.sources import (
     GSPSource,
@@ -134,14 +134,16 @@ class PrefetchingLoader:
 
 
 class NetCDFDataModule:
-    """Train/val/test loaders over prepared batch shards (``train/`` and
-    ``test/`` under ``data_path``, ``data/shards.py``) or fake batches
-    shaped by the dataset's ``configuration.yaml``. Constructor-compatible
-    with the JAX package's datamodule. A NetCDF dataset directory raises
-    (ROADMAP M16b), as does a remote ``data_path`` (M9); without
-    ``configuration.yaml`` fake data takes the default Configuration and
-    shards raise. ``configuration`` may be replaced before the first loader
-    is built.
+    """Train/val/test loaders over the splits ``train/`` and ``test/`` under
+    ``data_path``: the reference's per-batch NetCDF files (v15 per-source
+    trees or legacy flat files, ``data/netcdf_reader.py``), prepared batch
+    shards (``data/shards.py``), or fake batches shaped by the dataset's
+    ``configuration.yaml``. Constructor-compatible with the JAX package's
+    datamodule. A remote ``data_path`` (``gs://``, ``file://``, … through
+    fsspec) reads its ``configuration.yaml`` remotely and fetches each batch
+    file into ``temp_path/<split>``. Without ``configuration.yaml`` fake
+    data takes the default Configuration and real data raises.
+    ``configuration`` may be replaced before the first loader is built.
     """
 
     def __init__(
@@ -156,8 +158,6 @@ class NetCDFDataModule:
         fake_data: bool = False,
         shuffle_train: bool = True,
     ):
-        if "://" in data_path:
-            raise NotImplementedError(f"remote data_path {data_path!r} (fsspec) is not ported yet (ROADMAP M9)")
         self.temp_path = temp_path
         self.data_path = data_path
         self.cloud = cloud
@@ -168,31 +168,63 @@ class NetCDFDataModule:
         self.fake_data = fake_data
         self.shuffle_train = shuffle_train
 
-        filename = os.path.join(data_path, "configuration.yaml")
-        if os.path.exists(filename):
-            self.configuration = load_yaml_configuration(filename)
-        elif fake_data:
-            _LOG.warning("%s not found; using default Configuration for fake data", filename)
+        # remote stores use URL joins + fsspec (the reference's
+        # load_yaml_configuration opened gs:// URLs directly)
+        remote = "://" in data_path
+        if remote:
+            filename = data_path.rstrip("/") + "/configuration.yaml"
+            import fsspec
+
+            try:
+                with fsspec.open(filename, "rb") as fh:
+                    payload = fh.read()
+            except (FileNotFoundError, OSError) as exc:
+                if not fake_data:
+                    raise FileNotFoundError(filename) from exc
+                _LOG.warning("%s not readable (%s); using default Configuration for fake data", filename, exc)
+                payload = None
+        else:
+            filename = os.path.join(data_path, "configuration.yaml")
+            payload = filename if os.path.exists(filename) else None
+            if payload is None and not fake_data:
+                raise FileNotFoundError(filename)
+            if payload is None:
+                _LOG.warning("%s not found; using default Configuration for fake data", filename)
+        if payload is not None:
+            self.configuration = load_yaml_configuration(payload)
+        else:
             self.configuration = Configuration()
             self.configuration.input_data = self.configuration.input_data.set_all_to_defaults()
-        else:
-            raise FileNotFoundError(filename)
 
     def _dataset(self, n_batches: int, split: str):
         if self.fake_data:
             return FakeDataset(configuration=self.configuration, length=n_batches)
         src_path = os.path.join(self.data_path, split)
+        tmp_path = os.path.join(self.temp_path, split)
         if self._is_netcdf(src_path):
-            raise NotImplementedError(
-                f"{src_path} holds NetCDF batch files; the NetCDF/HDF5 reader is not ported yet "
-                "(ROADMAP M16b); prepare .npz or raw shards (data/shards.py write_shard)"
+            # the reference's published datasets unmodified: per-batch
+            # NetCDF files (v15 per-source tree or legacy flat files)
+            return NetCDFBatchDataset(
+                n_batches=n_batches, src_path=src_path, tmp_path=tmp_path, configuration=self.configuration
             )
-        return ShardDataset(n_batches=n_batches, src_path=src_path)
+        return ShardDataset(n_batches=n_batches, src_path=src_path, configuration=self.configuration,
+                            tmp_path=tmp_path)
 
     @staticmethod
     def _is_netcdf(src_path: str) -> bool:
         """Whether ``src_path`` holds one of the reference's NetCDF layouts:
-        v15 per-source directories or flat ``.nc`` files."""
+        v15 per-source directories or flat ``.nc`` files. A remote store is
+        probed once, with one fsspec listing per split."""
+        if "://" in src_path:
+            import fsspec
+
+            try:
+                fs, root = fsspec.core.url_to_fs(src_path)
+                # names only: some filesystems (memory://) list dicts by default
+                names = [os.path.basename(str(p).rstrip("/")) for p in fs.ls(root, detail=False)]
+            except (FileNotFoundError, OSError):
+                return False
+            return any(s in names for s in _V15_SOURCES) or any(n.endswith(".nc") for n in names)
         if not os.path.isdir(src_path):
             return False
         if any(os.path.isdir(os.path.join(src_path, s)) for s in _V15_SOURCES):
@@ -399,7 +431,7 @@ def get_dataloaders(
     data_path: str = "prepared_ML_training_data/v4/",
 ) -> Tuple[PrefetchingLoader, PrefetchingLoader]:
     """The train and validation loaders of a :class:`NetCDFDataModule` over
-    prepared shards under ``data_path``."""
+    the prepared dataset (NetCDF files or shards) under ``data_path``."""
     data_module = NetCDFDataModule(
         temp_path=temp_path,
         data_path=data_path,

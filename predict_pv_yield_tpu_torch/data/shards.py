@@ -137,19 +137,25 @@ def read_shard(path: str) -> Batch:
 
 
 class ShardDataset:
-    """Map-style dataset over a local directory of batch shards: ``len()``
-    is the number of batches, ``[i]`` the whole i-th batch. The format is
-    detected from the first shard read. Remote paths (``gs://…``) raise:
-    fetching them (fsspec) is not ported (ROADMAP M9)."""
+    """Map-style dataset over a directory of batch shards: ``len()`` is the
+    number of batches, ``[i]`` the whole i-th batch. The format is detected
+    from the first shard read. A remote path (``gs://…``, ``file://…``) is
+    read through ``fsspec.filesystem(protocol)``: each shard is fetched into
+    ``tmp_path`` with retries, read, and its local copy removed."""
 
-    def __init__(self, n_batches: int, src_path: str):
-        if "://" in src_path:
-            raise NotImplementedError(
-                f"remote shard path {src_path!r} (fsspec) is not ported yet (ROADMAP M9)"
-            )
+    def __init__(self, n_batches: int, src_path: str, configuration=None, tmp_path: Optional[str] = None):
         self.n_batches = n_batches
         self.src_path = src_path
+        self.tmp_path = tmp_path
+        self.configuration = configuration
         self._fmt: Optional[str] = None  # detected on first access
+        self._fs = None
+        if "://" in src_path:
+            try:
+                import fsspec
+            except ImportError as exc:
+                raise RuntimeError(f"remote shard path {src_path!r} needs fsspec, which is not installed") from exc
+            self._fs = fsspec.filesystem(src_path.split("://", 1)[0])
 
     def __len__(self) -> int:
         return self.n_batches
@@ -157,9 +163,10 @@ class ShardDataset:
     def _filename(self, index: int) -> str:
         if self._fmt is None:
             base = self.src_path
-            if os.path.exists(os.path.join(base, shard_filename(index, "raw"))):
+            exists = self._fs.exists if self._fs is not None else os.path.exists
+            if exists(os.path.join(base, shard_filename(index, "raw"))):
                 self._fmt = "raw"
-            elif os.path.exists(os.path.join(base, shard_filename(index, "npz"))):
+            elif exists(os.path.join(base, shard_filename(index, "npz"))):
                 self._fmt = "npz"
             else:
                 # neither candidate exists for the probe index: latch no guess
@@ -174,4 +181,27 @@ class ShardDataset:
             raise IndexError(
                 f"batch index must be in [0, {self.n_batches}), not {index}"
             )
-        return read_shard(os.path.join(self.src_path, self._filename(index)))
+        name = self._filename(index)
+        if self._fs is None:
+            return read_shard(os.path.join(self.src_path, name))
+        # a remote fetch with the reference's retry posture (its gcsfs patch
+        # retried transient HTTP errors)
+        import time
+
+        local = os.path.join(self.tmp_path or ".", name)
+        # get_file opens the local target without creating its parents: a
+        # missing temp dir would otherwise look like 5 transient failures
+        os.makedirs(os.path.dirname(local) or ".", exist_ok=True)
+        last_error: Optional[Exception] = None
+        for attempt in range(5):
+            try:
+                self._fs.get_file(os.path.join(self.src_path, name), local)
+                break
+            except Exception as exc:  # transient cloud-FS errors
+                last_error = exc
+                time.sleep(min(2**attempt, 8))
+        else:
+            raise RuntimeError(f"failed to fetch shard {name} after 5 attempts") from last_error
+        batch = read_shard(local)  # a raw shard's mapping outlives the file
+        os.remove(local)
+        return batch

@@ -7,15 +7,17 @@ is needed: this module implements the slice of the zarr v2 spec those
 archives need, first-party:
 
 * ``.zarray`` JSON metadata (shape, chunks, dtype, order C, fill_value);
-* chunk files named ``i.j.k`` (dot-separated grid indices), raw or
-  zlib/gzip-compressed; **blosc** chunks (the codec real OCF archives use)
-  raise ``NotImplementedError`` until the port's own blosc/LZ4 codec lands
-  (ROADMAP M16b), and filters raise as in the JAX reader;
+* chunk files named ``i.j.k`` (dot-separated grid indices), raw,
+  zlib/gzip-compressed, or **blosc**-compressed (lz4/zlib/zstd inner codecs
+  with byte shuffle — the format real OCF archives use; first-party frame
+  codec in ``data/blosc.py`` + ``csrc/lz4.cpp``); filters raise as in the
+  JAX reader;
 * basic orthogonal slicing assembled chunk-by-chunk, missing chunks filled
   with ``fill_value``.
 
-Local filesystem stores only. Chunks written by :func:`write_zarr` are
-byte-equal to the JAX package's (zlib level 5).
+Local filesystem stores only, as in the JAX package. Chunks written by
+:func:`write_zarr` are byte-equal to the JAX package's (zlib level 5, or
+blosc-lz4 with byte shuffle at clevel 5).
 """
 
 from __future__ import annotations
@@ -31,11 +33,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-#: what a blosc-compressed store raises until the codec is ported
-BLOSC_NOT_PORTED = (
-    "blosc-compressed zarr chunks are not ported yet (ROADMAP M16b: the "
-    "NetCDF/HDF5 reader and the blosc/LZ4 codec); write the store with zlib"
-)
+from predict_pv_yield_tpu_torch.data import blosc
 
 
 class ZarrArray:
@@ -80,12 +78,10 @@ class ZarrArray:
         self._codec: Optional[str] = None
         if compressor is not None:
             codec_id = compressor.get("id")
-            if codec_id == "blosc":
-                raise NotImplementedError(f"{path}: {BLOSC_NOT_PORTED}")
-            if codec_id not in ("zlib", "gzip"):
+            if codec_id not in ("zlib", "gzip", "blosc"):
                 raise ValueError(
                     f"unsupported zarr compressor {codec_id!r} "
-                    "(first-party reader supports null/zlib/gzip)"
+                    "(first-party reader supports null/zlib/gzip/blosc)"
                 )
             self._codec = codec_id
         self._separator = meta.get("dimension_separator", ".")
@@ -141,6 +137,8 @@ class ZarrArray:
             raw = fh.read()
         if self._codec in ("zlib", "gzip"):
             raw = zlib.decompress(raw, zlib.MAX_WBITS | 32 if self._codec == "gzip" else zlib.MAX_WBITS)
+        elif self._codec == "blosc":
+            raw = blosc.decompress(raw)
         return np.frombuffer(raw, dtype=self.dtype).reshape(chunk_shape)
 
     def __getitem__(self, key) -> np.ndarray:
@@ -212,9 +210,12 @@ class ZarrArray:
 
 def open_zarr(path: str, array: Optional[str] = None) -> ZarrArray:
     """Open a zarr array; ``array`` selects a member of a group store.
-    Local stores only: a remote (``gs://``) path raises (ROADMAP M9)."""
+    Local stores only: like the JAX package's reader, the port opens no
+    remote (``gs://``) store, and such a path raises."""
     if "://" in path:
-        raise NotImplementedError(f"remote zarr store {path!r} (fsspec) is not ported yet (ROADMAP M9)")
+        raise NotImplementedError(
+            f"remote zarr store {path!r}: the port, like the JAX package, opens local zarr stores only"
+        )
     if array is not None:
         path = os.path.join(path, array)
     if os.path.exists(os.path.join(path, ".zarray")):
@@ -241,19 +242,23 @@ def write_zarr(
 ) -> None:
     """Write a zarr v2 array (test fixtures / dataset preparation).
 
-    ``compressor``: "zlib" ("blosc" raises until ROADMAP M16b).
-    ``attrs`` lands in ``.zattrs`` (e.g. CF ``units`` for time axes).
-    Chunks are compressed on a thread pool (zlib releases the GIL); the
-    files are the JAX package's, byte for byte."""
-    if compress and compressor != "zlib":
-        if compressor == "blosc":
-            raise NotImplementedError(BLOSC_NOT_PORTED)
-        raise ValueError(f"unsupported compressor {compressor!r} (zlib)")
+    ``compressor``: "zlib" or "blosc" (blosc-lz4 + byte shuffle at clevel
+    5, the layout numcodecs' default Blosc codec writes for real OCF
+    archives). ``attrs`` lands in ``.zattrs`` (e.g. CF ``units`` for time
+    axes). Chunks are compressed on a thread pool (zlib and the LZ4 codec
+    release the GIL); the files are the JAX package's, byte for byte."""
+    if compress and compressor not in ("zlib", "blosc"):
+        raise ValueError(f"unsupported compressor {compressor!r} (zlib, blosc)")
     os.makedirs(path, exist_ok=True)
     if attrs:
         with open(os.path.join(path, ".zattrs"), "w") as fh:
             json.dump(attrs, fh)
-    compressor_meta = {"id": "zlib", "level": 5} if compress else None
+    if not compress:
+        compressor_meta = None
+    elif compressor == "blosc":
+        compressor_meta = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1, "blocksize": 0}
+    else:
+        compressor_meta = {"id": "zlib", "level": 5}
     meta = {
         "zarr_format": 2,
         "shape": list(data.shape),
@@ -275,7 +280,9 @@ def write_zarr(
             padded[tuple(slice(0, s) for s in chunk.shape)] = chunk
             chunk = padded
         raw = np.ascontiguousarray(chunk).tobytes()
-        if compress:
+        if compress and compressor == "blosc":
+            raw = blosc.compress(raw, typesize=data.dtype.itemsize)
+        elif compress:
             raw = zlib.compress(raw, 5)
         name = ".".join(str(i) for i in chunk_index)
         with open(os.path.join(path, name), "wb") as fh:

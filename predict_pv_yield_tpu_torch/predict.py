@@ -2,14 +2,19 @@
 package's ``tools/predict.py`` and ``Trainer.predict``.
 
 Weights (a seed, a reference Lightning ``.ckpt`` or a port ``state_dict``
-``.pt``), then batches (fake data shaped to the model's geometry), then the
-satellite decode and the forward on the device, then a forecast CSV with the
-columns ``batch_index, example_index, forecast_horizon, forecast`` and,
-with ``--nmae``, the mean absolute error against the batches' targets:
+``.pt``), then batches (the test split of a prepared dataset with
+``--data``, NetCDF files or shards; else fake data shaped to the model's
+geometry), then the satellite decode and the forward on the device, then a
+forecast CSV with the columns ``batch_index, example_index,
+forecast_horizon, forecast`` and, with ``--nmae``, the mean absolute error
+against the batches' targets:
 
     python -m predict_pv_yield_tpu_torch.predict --model conv3d_sat_nwp \\
         --model-config configs/model/conv3d_sat_nwp.yaml --n-batches 10 \\
-        --out forecasts.csv --nmae
+        --out forecasts.csv --nmae [--data /path/to/prepared]
+
+With ``--data`` the model's data-dependent input widths follow the
+dataset's ``configuration.yaml`` (``match_configuration``).
 
 Host batches go to the card through pinned buffers on a copy stream, the
 next batch's copy issued before the current forward (``iter_batches``).
@@ -29,6 +34,7 @@ import torch
 from predict_pv_yield_tpu_torch.convert import load_lightning_checkpoint
 from predict_pv_yield_tpu_torch.data.batch import Batch
 from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
+from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule
 from predict_pv_yield_tpu_torch.data.preprocess import preprocess_batch
 from predict_pv_yield_tpu_torch.losses import WeightedLosses, mse_loss, nmae_loss
 from predict_pv_yield_tpu_torch.metrics import mae_each_forecast_horizon, mse_each_forecast_horizon
@@ -144,6 +150,14 @@ def fake_loader(model, n_batches: int) -> FakeDataset:
     return FakeDataset(configuration=configuration, length=n_batches, seed=0)
 
 
+def data_loader(data_path: str, n_batches: int):
+    """The test loader of a prepared dataset under ``data_path`` (NetCDF
+    files or shards, local or remote) over ``n_batches`` batches, and the
+    dataset's configuration, as ``tools/predict.py --data`` reads them."""
+    datamodule = NetCDFDataModule(data_path=data_path, n_val_data=n_batches, num_workers=4)
+    return datamodule.test_dataloader(), datamodule.configuration
+
+
 def load_model_config(path: str) -> Dict:
     """A model hyperparameter YAML as a dict (``_target_`` kept)."""
     import yaml
@@ -208,13 +222,19 @@ def run(
     out: str = "forecasts.csv",
     with_nmae: bool = False,
     device="cuda",
+    data: Optional[str] = None,
 ) -> Dict:
     """The CLI's work for a model config given as a dict → ``{"predictions",
     "rows", "nmae"}`` (``nmae`` None unless asked for). Without a
-    checkpoint the weights come from seed 0."""
+    checkpoint the weights come from seed 0; without ``data`` the batches
+    are fake."""
     device = resolve_device(device)
-    model = build_model(model_name, model_config, checkpoint)
-    loader = fake_loader(model, n_batches)
+    if data:
+        loader, configuration = data_loader(data, n_batches)
+        model = build_model(model_name, model_config, checkpoint, configuration=configuration)
+    else:
+        model = build_model(model_name, model_config, checkpoint)
+        loader = fake_loader(model, n_batches)
     predictions = predict(model, loader, device)
     rows = write_forecasts(predictions, out)
     print(f"wrote {rows} forecasts to {out}")
@@ -232,6 +252,7 @@ def main(argv=None) -> Dict:
                         "perceiver, perceiver_nwp_sat, perceiver_conv3d_nwp_sat)")
     parser.add_argument("--model-config", required=True, help="model hyperparameter YAML")
     parser.add_argument("--checkpoint", help="reference Lightning .ckpt or port state_dict .pt")
+    parser.add_argument("--data", help="prepared dataset dir: NetCDF files or shards (omit for fake data)")
     parser.add_argument("--n-batches", type=int, default=10)
     parser.add_argument("--out", default="forecasts.csv")
     parser.add_argument("--nmae", action="store_true",
@@ -246,6 +267,7 @@ def main(argv=None) -> Dict:
         out=args.out,
         with_nmae=args.nmae,
         device=args.device,
+        data=args.data,
     )
 
 

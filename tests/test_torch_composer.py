@@ -107,8 +107,6 @@ def test_instantiate_builds_port_objects(tmp_cwd):
     (["experiment=perceiver_tp", "trainer.precision=32"], ("trainer",), "T9"),
     (["model=cnn_rnn"], ("model",), None),
     (["model=cnn_concat_timesteps"], ("model",), None),
-    (["datamodule=zarr_stream", "datamodule.zarr_path=gs://bucket/satellite.zarr"], ("datamodule",), "M9"),
-    (["datamodule.data_path=gs://bucket/v15"], ("datamodule",), "M9"),
     (["logger=tensorboard"], ("logger", "tensorboard"), "T7"),
     (["logger=wandb"], ("logger", "wandb"), "T7"),
     (["logger=many_loggers"], ("logger", "tensorboard"), "T7"),
@@ -125,6 +123,18 @@ def test_instantiate_names_the_roadmap_item(overrides, section, item):
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         instantiate(node)
+
+
+@pytest.mark.parametrize("overrides,error,match", [
+    # the port, like the JAX package, opens local zarr stores only
+    (["datamodule=zarr_stream", "datamodule.zarr_path=gs://bucket/satellite.zarr"], NotImplementedError,
+     "opens local zarr stores only"),
+    # a remote prepared dataset is read through fsspec (here an empty memory:// store)
+    (["datamodule.data_path=memory://no-such-bucket/v15"], FileNotFoundError, "configuration.yaml"),
+])
+def test_remote_datamodules_instantiate_through_the_port(overrides, error, match):
+    with pytest.raises(error, match=match):
+        instantiate(_compose(overrides)["datamodule"])
 
 
 def test_unknown_foreign_target_raises():

@@ -201,8 +201,8 @@ def test_datamodule_fake_loaders_and_not_ported():
     train_loader, _ = get_dataloaders(data_path=DATASET)
     with pytest.raises(FileNotFoundError, match=r"no \d{6}\.shard or"):
         next(iter(train_loader))
-    with pytest.raises(NotImplementedError, match="M9"):
-        get_dataloaders(data_path="gs://bucket/v15")
+    with pytest.raises(FileNotFoundError, match="configuration.yaml"):  # remote, through fsspec
+        get_dataloaders(data_path="memory://no-such-bucket/v15")
 
 
 @pytest.mark.parametrize("t0", [

@@ -1,13 +1,20 @@
 """The port's serve path (``predict_pv_yield_tpu_torch.predict``) against the
 JAX package's: the CLI on the CPU writes the forecasts the JAX model gives
-on the same fake batches (to 1e-4) and the same NMAE; checkpoints load;
-without a card the default device raises."""
+on the same fake batches (to 1e-4) and the same NMAE; with ``--data`` it
+writes the forecasts ``tools/predict.py --data`` writes on prepared shards
+and on a v15 NetCDF tree with the same weights; checkpoints load; without a
+card the default device raises."""
 
 import argparse
+import contextlib
 import csv
 import importlib.util
+import io
+import json
 import pathlib
 import pickle
+import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +24,8 @@ import torch
 import yaml
 
 import predict_pv_yield_tpu.data.fake as jfake
+import predict_pv_yield_tpu.data.netcdf_writer as jwriter
+import predict_pv_yield_tpu.data.shards as jshards
 import predict_pv_yield_tpu.losses as jlosses
 import predict_pv_yield_tpu.metrics as jmetrics
 from predict_pv_yield_tpu.data.preprocess import preprocess_batch as jax_preprocess_batch
@@ -184,3 +193,68 @@ def test_chip_smoke_config_is_the_model_yaml():
     spec.loader.exec_module(chip_smoke)
     with open(REPO / "configs" / "model" / "conv3d_sat_nwp.yaml") as fh:
         assert chip_smoke.CONV3D_SAT_NWP == yaml.safe_load(fh)
+
+
+def _write_prepared(root, fmt, configuration):
+    """Two test batches of the JAX package's fake backend in the geometry
+    of ``configuration`` as a prepared dataset: raw shards, or a v15 NetCDF
+    tree with the int16 satellite wire; its ``configuration.yaml``."""
+    for i in range(2):
+        rng = np.random.default_rng((9, i))
+        batch = jfake.fake_batch(configuration, rng)
+        if fmt == "netcdf":
+            raw = rng.integers(-1, 1023, size=batch.satellite.data.shape, dtype=np.int16)
+            jwriter.write_v15_batch(str(root / "test"), i, batch.replace(satellite=batch.satellite.replace(data=raw)))
+        else:
+            jshards.write_shard(str(root / "test"), i, batch, fmt="raw")
+    input_data = configuration.input_data
+    (root / "configuration.yaml").write_text(json.dumps({  # JSON is YAML
+        "process": {"batch_size": configuration.process.batch_size},
+        "input_data": {
+            "default_history_minutes": input_data.default_history_minutes,
+            "default_forecast_minutes": input_data.default_forecast_minutes,
+            "satellite": {"satellite_channels": list(input_data.satellite.satellite_channels),
+                          "satellite_image_size_pixels": input_data.satellite.satellite_image_size_pixels},
+            "nwp": {"nwp_channels": list(input_data.nwp.nwp_channels),
+                    "nwp_image_size_pixels": input_data.nwp.nwp_image_size_pixels},
+        }}))
+
+
+@pytest.mark.parametrize("fmt", ["raw", "netcdf"])
+def test_data_option_matches_the_jax_tool(tmp_path, files, monkeypatch, fmt):
+    """``--data`` on a prepared dataset through ``tools/predict.py`` and the
+    port (on the CPU), from one Lightning ``.ckpt`` whose widths follow the
+    dataset's configuration: the same forecasts to 1e-4, the same NMAE."""
+    config_path, _ = files
+    config = {k: v for k, v in SMALL.items() if k != "_target_"}
+    root = tmp_path / "prepared"
+    _write_prepared(root, fmt, _jax_predict_configuration(JaxModel(**config)))
+    loader, configuration = predict.data_loader(str(root), 2)
+    model = predict.build_model("conv3d_sat_nwp", SMALL, seed=3, configuration=configuration)
+    ckpt = tmp_path / "weights.ckpt"
+    torch.save({"state_dict": {f"model.{k}": v for k, v in model.state_dict().items()},
+                "hyper_parameters": dict(config)}, ckpt)
+    monkeypatch.chdir(REPO)
+    monkeypatch.setenv("JAX_NO_PERSISTENT_CACHE", "1")
+    args = ["--model", "conv3d_sat_nwp", "--model-config", str(config_path), "--checkpoint", str(ckpt),
+            "--data", str(root), "--n-batches", "2", "--nmae"]
+    outputs = {}
+    for who in ("jax", "port"):
+        out = tmp_path / f"{who}.csv"
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            if who == "jax":
+                spec = importlib.util.spec_from_file_location("predict_tool", REPO / "tools" / "predict.py")
+                tool = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(tool)
+                monkeypatch.setattr(sys, "argv", ["predict.py", *args, "--out", str(out)])
+                tool.main()
+            else:
+                predict.main([*args, "--out", str(out), "--device", "cpu"])
+        outputs[who] = (np.loadtxt(out, delimiter=",", skiprows=1),
+                        float(re.search(r"NMAE: ([0-9.]+)", printed.getvalue()).group(1)))
+    (jax_rows, jax_nmae), (rows, nmae) = outputs["jax"], outputs["port"]
+    assert rows.shape == jax_rows.shape == (2 * 32 * 4, 4)
+    np.testing.assert_array_equal(rows[:, :3], jax_rows[:, :3])
+    np.testing.assert_allclose(rows[:, 3], jax_rows[:, 3], rtol=1e-4, atol=1e-4)
+    assert np.isfinite(nmae) and abs(nmae - jax_nmae) <= 2e-6  # both printed to 6 decimals

@@ -3,8 +3,10 @@
 and raw shards written by each package and read by the other, field for
 field; raw shards read as writable copy-on-write views that keep their
 mapping alive and raise no warning; the datamodule over a shard directory
-gives the JAX package's batches in the JAX package's order; NetCDF and
-remote directories raise naming their ROADMAP item. Exact: both are numpy.
+gives the JAX package's batches in the JAX package's order; NetCDF
+directories go to the NetCDF reader, remote shard directories are fetched
+through fsspec (``memory://``), and unreadable ones raise. Exact: both are
+numpy.
 """
 
 import dataclasses
@@ -28,6 +30,7 @@ from predict_pv_yield_tpu_torch.data import fake
 from predict_pv_yield_tpu_torch.data import shards as tshards
 from predict_pv_yield_tpu_torch.data.batch import Batch
 from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule, get_dataloaders
+from predict_pv_yield_tpu_torch.data.netcdf_reader import NetCDFBatchDataset
 from tests.test_torch_sources import assert_same_batch
 
 CONFIGURATION = os.path.join(os.path.dirname(__file__), "configs", "dataset_small", "configuration.yaml")
@@ -136,11 +139,18 @@ def test_netcdf_and_remote_directories_raise(tmp_path, layout):
     else:
         (root / "train" / "000000.nc").write_bytes(b"\x89HDF")
     datamodule = NetCDFDataModule(data_path=str(root), n_train_data=1, n_val_data=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP M16b"):
-        datamodule.train_dataloader()
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        NetCDFDataModule(data_path="gs://bucket/prepared/", fake_data=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        tshards.ShardDataset(1, "gs://bucket/prepared/train")
+    loader = datamodule.train_dataloader()
+    assert isinstance(loader.dataset, NetCDFBatchDataset)
+    # an empty per-source tree has no file for batch 0; a truncated HDF5
+    # file is no NetCDF file
+    with pytest.raises((FileNotFoundError, OSError)):
+        next(iter(loader))
+    # an unknown protocol raises without a connection attempt
+    with pytest.raises(ValueError, match="Protocol not known"):
+        NetCDFDataModule(data_path="nosuchprotocol://bucket/prepared/", fake_data=False)
+    with pytest.raises(ValueError, match="Protocol not known"):
+        tshards.ShardDataset(1, "nosuchprotocol://bucket/prepared/train")
+    with pytest.raises(FileNotFoundError, match="configuration.yaml"):
+        NetCDFDataModule(data_path=f"memory://{tmp_path.name}/nothing", fake_data=False)
     with pytest.raises(FileNotFoundError, match="configuration.yaml"):
         NetCDFDataModule(data_path=str(tmp_path / "nothing"), fake_data=False)

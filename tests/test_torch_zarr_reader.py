@@ -1,7 +1,8 @@
 """The port's zarr reader against the JAX package's: stores written by each
 read by the other (zlib, gzip, uncompressed), missing and edge chunks,
-window and int slices and empty slices; zlib chunk files byte-equal; blosc
-and filters raise. Exact: both are numpy.
+window and int slices and empty slices; zlib and blosc chunk files
+byte-equal, and blosc stores read by each package; filters and remote
+paths raise. Exact: both are numpy.
 """
 
 import gzip
@@ -118,7 +119,7 @@ def test_group_store_and_missing_path(tmp_path):
     assert tzarr.open_zarr(str(group), "data").shape == (19, 11, 7)
     with pytest.raises(FileNotFoundError):
         tzarr.open_zarr(str(tmp_path / "nothing"))
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+    with pytest.raises(NotImplementedError, match="opens local zarr stores only"):
         tzarr.open_zarr("gs://bucket/satellite.zarr")
 
 
@@ -127,11 +128,14 @@ def test_blosc_and_filters_raise(tmp_path):
     path = str(tmp_path / "blosc")
     jzarr.write_zarr(path, data, chunks=(4, 5, 7), compressor="blosc")
     np.testing.assert_array_equal(jzarr.open_zarr(path)[:], data)  # the JAX package reads it
-    with pytest.raises(NotImplementedError, match="ROADMAP M16b"):
-        tzarr.open_zarr(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP M16b"):
-        tzarr.write_zarr(str(tmp_path / "b2"), data, chunks=(4, 5, 7), compressor="blosc")
-    assert not os.path.exists(tmp_path / "b2")
+    np.testing.assert_array_equal(tzarr.open_zarr(path)[:], data)  # and so does the port
+    tzarr.write_zarr(str(tmp_path / "b2"), data, chunks=(4, 5, 7), compressor="blosc")
+    assert sorted(os.listdir(tmp_path / "b2")) == sorted(os.listdir(path))
+    for name in os.listdir(path):  # blosc-lz4, byte shuffle, clevel 5: the same bytes
+        with open(os.path.join(path, name), "rb") as a, open(tmp_path / "b2" / name, "rb") as b:
+            assert a.read() == b.read(), name
+    with pytest.raises(ValueError, match="unsupported compressor"):
+        tzarr.write_zarr(str(tmp_path / "b3"), data, chunks=(4, 5, 7), compressor="zstd")
 
     path = str(tmp_path / "filtered")
     tzarr.write_zarr(path, data, chunks=(4, 5, 7))
