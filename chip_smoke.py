@@ -1,7 +1,9 @@
 """Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast, the
 conv3d_sat_nwp serve and train paths, the data path that feeds them, the
-perceiver family, the rest of the single-device zoo with bf16, and the
-on-disk formats (NetCDF, blosc/LZ4, remote stores, the prepare step).
+perceiver family, the rest of the single-device zoo with bf16, the on-disk
+formats (NetCDF, blosc/LZ4, remote stores, the prepare step) and the
+Trainer's knobs (CUDA graphs of k steps, lr_find, the float16 wire,
+overfit/reload, loggers, plots, debug_nans, the device trace).
 
     python3 chip_smoke.py
 
@@ -112,23 +114,54 @@ Phases (any failure exits non-zero):
      (a)'s zlib numbers, and its channel statistics; (h) without h5py an
      HDF5 file, without zstandard a blosc-zstd frame, raises naming the
      package (with them: an HDF5 and a zstd round trip);
- 12. the ``kernels`` line, then the result line.
+ 12. the Trainer's knobs at full width: (a) ``steps_per_execution`` 8 as one
+     CUDA graph of 8 train steps for conv3d_sat_nwp.yaml at batch 32 on
+     phase 7's batches in fp32 and bf16 and perceiver.yaml at batch 8 in
+     bf16, each group of 8 batches rotated against the one before: 24 steps
+     (the first group eager, then 16 replayed) against 24 eager steps under
+     deterministic algorithms (flash attention's deterministic backward
+     included), parameters, Adam's moments and step counts and every step's
+     NMAE bit-equal (else within phase 7's one-step tolerances), and the
+     same with ``accumulate_grad_batches=2``; for the perceiver, two planted
+     faults (every replay skipped; every replay on the first group's
+     inputs) that the same check must catch; fits of 48 steps at k = 1 and
+     8: steady train examples/s (the last 16 step gaps, the last 4 group
+     gaps), and a traced 8-step fit's busy share and host kernel launches
+     per optimiser step; (b) ``lr_find(num_training=32)``
+     on conv3d_sat_nwp.yaml: its suggestion and seconds; (c)
+     ``wire_float16`` on phase 11's NetCDF tree: bytes per batch float32
+     against float16, the fit's steady rate on each wire, the ``"auto"``
+     probe's interleaved timings and decision, and the forecasts on the
+     float16 wire within 16 float16 roundings of max |y| of the float32
+     wire's; (d) ``overfit_batches=2`` for 3 epochs, and
+     ``reload_dataloaders_every_epoch`` for 2 from the tree with each
+     reloaded loader carrying the float16 cast; (e) a fit with the
+     composed ``logger=many_loggers`` (its tfevents file read back record
+     by record, CRCs checked), the four SaaS loggers with their clients
+     hidden (each warns and writes JSONL), the validation plots as HTML (or
+     that matplotlib is missing); (f) ``profiler="jax"``'s trace holding
+     CUDA kernel events, and ``debug_nans`` raising ``FloatingPointError``
+     naming ``fc1.weight`` set to NaN at k = 1 and 8;
+ 13. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
 path (phases 3 and 4) and read just after; the serve, train, data,
-perceiver, zoo and formats paths run no hand kernel (the JAX package
-computes them with XLA, outside any Pallas kernel; attention is PyTorch's
-``scaled_dot_product_attention``; the LZ4 codec is host code), and their
-phases check that ``sep_blur`` launched 0 times.
+perceiver, zoo, formats and Trainer paths run no hand kernel (the JAX
+package computes them with XLA, outside any Pallas kernel; attention is
+PyTorch's ``scaled_dot_product_attention``; the LZ4 codec is host code; a
+CUDA graph replays the kernels it captured), and their phases check that
+``sep_blur`` launched 0 times.
 Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -316,6 +349,34 @@ FORMAT_PREDICT_BATCHES = 2  # (e): the CPU side of predict --data stays cheap
 NETCDF_DATAMODULE = {"_target_": "predict_pv_yield_tpu.data.loader.NetCDFDataModule", "temp_path": ".",
                      "n_train_data": 4000, "n_val_data": 400, "num_workers": 8, "pin_memory": True,
                      "data_path": "data/prepared_ML_training_data/v15/", "fake_data": False, "shuffle_train": True}
+
+
+#: phase 12: the Trainer's knobs at full width
+GRAPH_K = 8
+GRAPH_TRAIN = 48  # the rate fits: 6 groups of 8, the first eager (then captured), 5 replayed
+STEADY_GROUPS = 4  # a graphed fit's steady rate: the last 4 group gaps, all between replays
+GRAPH_EQUAL_TRAIN = 24  # the equality fits: 3 groups, 16 steps replayed
+LR_FIND_STEPS = 32
+U16 = 2.0 ** -11  # float16's unit roundoff
+WIRE_TOL = 16 * U16  # f16-wire forecasts within 16 float16 roundings of max |y| of the f32 wire's
+LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cuGraphLaunch")
+SAAS = {
+    "wandb": {"_target_": "predict_pv_yield_tpu.training.loggers.WandbLogger", "project": "predict_pv_yield_tpu"},
+    "neptune": {"_target_": "predict_pv_yield_tpu.training.loggers.NeptuneLogger", "api_key": "",
+                "project": "OpenClimateFix/predict-pv-yield", "prefix": ""},
+    "mlflow": {"_target_": "predict_pv_yield_tpu.training.loggers.MLFlowLogger", "experiment_name": "default",
+               "tracking_uri": None, "save_dir": "./mlruns"},
+    "comet": {"_target_": "predict_pv_yield_tpu.training.loggers.CometLogger", "api_key": "",
+              "project_name": "predict_pv_yield_tpu"},
+}
+#: configs/logger/many_loggers.yaml composed (csv.yaml + tensorboard.yaml), as a literal
+MANY_LOGGERS = {
+    "csv": {"_target_": "predict_pv_yield_tpu.training.loggers.CSVLogger", "save_dir": ".", "name": "csv/",
+            "version": None, "prefix": ""},
+    "tensorboard": {"_target_": "predict_pv_yield_tpu.training.loggers.TensorBoardLogger", "save_dir": "tensorboard/",
+                    "name": "default", "version": None, "prefix": ""},
+}
 
 
 def log(message: str) -> None:
@@ -2732,31 +2793,590 @@ def _format_packages(tmp):
     return {"packages": found}
 
 
-def phase_formats(device, trained, data):
+def phase_formats(device, trained, data, tmp):
     """Phase 11: the on-disk formats at the flagship's widths — the LZ4
     codec, a v15 classic NetCDF tree through the loader, ``train(config)``
     and ``file://``, a legacy file, ``predict --data``, ``prepare`` and the
-    channel statistics, a blosc archive streamed, the optional packages."""
-    import tempfile
-
+    channel statistics, a blosc archive streamed, the optional packages →
+    (results, the tree, which phase 12 reads again)."""
     from predict_pv_yield_tpu_torch.ops import sep_blur as blur
 
     blur.launches = 0
     start = time.perf_counter()
     results = _format_lz4()
-    with tempfile.TemporaryDirectory() as tmp:
-        tree, expected, _ = _format_tree(tmp)
-        results.update(_format_loader(device, tmp, tree, expected, trained))
-        results.update(_format_remote(tmp, tree, expected))
-        _format_legacy(tmp, expected)
-        results.update(_format_predict(device, tmp, tree))
-        del expected
-        results.update(_format_prepare(tmp))
-        results.update(_format_blosc(tmp, data))
-        results.update(_format_packages(tmp))
+    tree, expected, _ = _format_tree(tmp)
+    results.update(_format_loader(device, tmp, tree, expected, trained))
+    results.update(_format_remote(tmp, tree, expected))
+    _format_legacy(tmp, expected)
+    results.update(_format_predict(device, tmp, tree))
+    del expected
+    results.update(_format_prepare(tmp))
+    results.update(_format_blosc(tmp, data))
+    results.update(_format_packages(tmp))
     check(blur.launches == 0, "the formats phase launched sep_blur")
     results["seconds"] = time.perf_counter() - start
     log(f"[formats] phase 11: {results['seconds']:.2f} s")
+    return results, tree
+
+
+def _marked_fit(trainer, batch_size, **fit_kwargs):
+    """``trainer.fit`` with a CUDA event after every train step, or after
+    every group of k steps with ``steps_per_execution`` k → (wall seconds,
+    steps, the median examples/s over the steady gaps between marks, the
+    number of those gaps, every step's NMAE in order). The steady gaps are
+    the last ``STEADY_STEPS`` at k = 1 and the last ``STEADY_GROUPS`` at
+    k > 1."""
+    marks, losses = [], []
+    k = trainer.steps_per_execution
+    name = "train_group" if k > 1 else "train_step"
+    inner = getattr(trainer, name)
+
+    def marked(batch):
+        metrics = inner(batch)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        losses.append(metrics["NMAE"].reshape(-1))
+        return metrics
+
+    setattr(trainer, name, marked)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    try:
+        trainer.fit(trainer._model, **fit_kwargs)
+    finally:
+        delattr(trainer, name)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    gaps = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])][-(STEADY_GROUPS if k > 1 else STEADY_STEPS):]
+    rate = float(np.median([k * batch_size * 1e3 / gap for gap in gaps]))
+    return seconds, len(marks) * k, rate, len(gaps), torch.cat(losses).float().cpu()
+
+
+def _traced(fn):
+    """One traced call of ``fn`` → (busy share, wall seconds, host kernel
+    and graph launches, device kernel records): the union of the kernel and
+    copy intervals on the card over the host clock around the call, and the
+    runtime's launch calls on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        events = prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
+        if spans:
+            break
+        log(f"[profiler] no device records in trace {attempt}; tracing again")
+    check(bool(spans), "the profiler recorded no device activity")
+    busy, (lo, hi) = 0.0, spans[0]
+    for start_us, end_us in spans[1:]:
+        if start_us > hi:
+            busy += hi - lo
+            lo, hi = start_us, end_us
+        else:
+            hi = max(hi, end_us)
+    busy += hi - lo
+    launches = sum(1 for e in events if e.name in LAUNCH_NAMES)
+    graphs = sum(1 for e in events if "GraphLaunch" in e.name)
+    return busy / (wall * 1e6), wall, launches, graphs, len(spans)
+
+
+def _state_diff(a, b):
+    """(bit-equal, max |Δ| over parameters, max |Δ| over Adam's moments and
+    step) of two trainers' states; a NaN anywhere gives NaN."""
+    sa, sb = a.state, b.state
+    pairs = list(zip(sa["optimizer"]["state"].values(), sb["optimizer"]["state"].values()))
+    params = float(torch.stack([(sa["model"][k].float() - sb["model"][k].float()).abs().max()
+                                for k in sa["model"]]).max())
+    moments = float(torch.stack([(x[key].float() - y[key].float()).abs().max()
+                                 for x, y in pairs for key in ("exp_avg", "exp_avg_sq", "step")]).max())
+    equal = all(torch.equal(sa["model"][k], sb["model"][k]) for k in sa["model"]) and all(
+        torch.equal(x[key], y[key]) for x, y in pairs for key in ("exp_avg", "exp_avg_sq", "step"))
+    return equal, params, moments
+
+
+def _adam_updates(trainer):
+    """The distinct step counts of Adam's per-parameter states."""
+    return sorted({int(state["step"]) for state in trainer.state["optimizer"]["state"].values()})
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN and PyTorch held to deterministic algorithms inside the block:
+    flash attention's backward takes its deterministic algorithm, and an op
+    without one raises."""
+    cudnn = torch.backends.cudnn
+    before = torch.are_deterministic_algorithms_enabled(), cudnn.deterministic, cudnn.benchmark
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        cudnn.deterministic, cudnn.benchmark = before[1], before[2]
+
+
+def _rotated(unique, steps):
+    """``steps`` batches of ``unique``, group g of ``GRAPH_K`` rotated by g,
+    so that no two groups hold the same batch at the same step: a replay on
+    a stale group trains on other data than the eager step."""
+    return [unique[(i + i // GRAPH_K) % len(unique)] for i in range(steps)]
+
+
+def _fit_k(device, make_model, batches, k, precision, accumulate, batch_size, checked=True):
+    """A trainer set up from the seed and fitted on ``batches`` at
+    ``steps_per_execution`` k → (trainer, wall seconds, steady examples/s,
+    steady gaps, every step's NMAE). ``checked``: fail on a short or
+    non-finite fit, or one at k > 1 that captured no CUDA graph."""
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    trainer = Trainer(max_epochs=1, device=device, precision=precision, profiler=None, weights_summary=None,
+                      steps_per_execution=k, accumulate_grad_batches=accumulate)
+    trainer.setup(make_model())
+    seconds, steps, rate, gaps, losses = _marked_fit(trainer, batch_size, train_dataloaders=batches)
+    if checked:
+        check(trainer.global_step == len(batches) and steps == len(batches), f"k={k} ran {steps} steps")
+        check(np.isfinite(trainer.callback_metrics["NMAE/Train_epoch"]), f"k={k}: a non-finite loss")
+        check(k == 1 or len(trainer._graphs) >= 1, "no CUDA graph was captured")
+    return trainer, seconds, rate, gaps, losses
+
+
+def _graph_equality(eager, graphed):
+    """A graphed fit against an eager fit of the same batches from the same
+    seed, each ``(trainer, every step's NMAE)``, under deterministic
+    algorithms → (agrees, numbers). Parameters, Adam's moments and step
+    counts and every step's NMAE are expected bit-equal. A fit that is not
+    agrees where Adam's step counts are equal, every step's NMAE is within
+    phase 7's ``STEP_LOSS_TOL`` and the parameters within its one-step
+    ``STEP_PARAM_TOL``."""
+    (a, a_losses), (b, b_losses) = eager, graphed
+    equal, params, moments = _state_diff(a, b)
+    updates = _adam_updates(a), _adam_updates(b)
+    loss = float((a_losses - b_losses).abs().max()) if a_losses.shape == b_losses.shape else float("nan")
+    agrees = updates[0] == updates[1] and loss <= STEP_LOSS_TOL and params <= STEP_PARAM_TOL
+    return agrees, {"bit_equal": equal and loss == 0.0, "param_diff": params, "adam_diff": moments,
+                    "nmae_diff": loss, "adam_updates": updates[1]}
+
+
+def _planted_faults():
+    """(name, context) pairs that break graphed fits on purpose, for
+    showing that :func:`_graph_equality` catches them: every replay
+    skipped, and every replay run on the first group's inputs."""
+    from unittest import mock
+
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    graphed, first = Trainer._train_graphed, []
+
+    def stale(self, group):
+        first.append(group)
+        return graphed(self, first[0])
+
+    return [("every replay skipped", mock.patch.object(torch.cuda.CUDAGraph, "replay", lambda self: None)),
+            ("every replay on the first group's inputs", mock.patch.object(Trainer, "_train_graphed", stale))]
+
+
+def _graph_cell(device, label, make_model, unique, batch_size, precision=32, accumulate=1, rates=True,
+                faults=False):
+    """Phase 12 (a) for one cell, on ``unique`` batches in rotated groups.
+    Under deterministic algorithms, fits of ``GRAPH_EQUAL_TRAIN`` batches at
+    ``steps_per_execution`` 1 and 8 go to :func:`_graph_equality`; with
+    ``faults``, so do graphed fits with each planted fault, which must fail
+    it. With ``rates``, fits of ``GRAPH_TRAIN`` batches at k = 1 and 8 at
+    the default algorithms: their steady train examples/s, their states'
+    difference, and the busy share and host launches per optimiser step of
+    a traced 8-step fit on each trainer (the k = 8 one replays the graph it
+    captured)."""
+    began = time.perf_counter()
+
+    def fit(k, steps, checked=True):
+        return _fit_k(device, make_model, _rotated(unique, steps), k, precision, accumulate, batch_size, checked)
+
+    steps = GRAPH_EQUAL_TRAIN
+    line = (f"[trainer] (a) {label}: {steps} steps at steps_per_execution {GRAPH_K} (the first group eager, "
+            f"{steps - GRAPH_K} replayed) against {steps} eager steps, deterministic algorithms")
+    with _deterministic():
+        eager = fit(1, steps)
+        graphed = fit(GRAPH_K, steps)
+        agrees, result = _graph_equality((eager[0], eager[4]), (graphed[0], graphed[4]))
+        numbers = (f"parameters max |Δ| {result['param_diff']:.3e} (limit {STEP_PARAM_TOL}), Adam state "
+                   f"{result['adam_diff']:.3e}, step counts {result['adam_updates']}, every step's NMAE max |Δ| "
+                   f"{result['nmae_diff']:.3e} (limit {STEP_LOSS_TOL})")
+        log(f"{line} ({len(graphed[0]._graphs)} CUDA graph(s)): "
+            + ("parameters, Adam moments and step counts, and every step's NMAE bit-equal" if result["bit_equal"]
+               else f"not bit-equal: {numbers}"))
+        check(agrees, f"{label}: graphed steps disagree with eager steps")
+        for fault, planted in (_planted_faults() if faults else []):
+            with planted:
+                broken = fit(GRAPH_K, steps, checked=False)
+            caught, numbers = _graph_equality((eager[0], eager[4]), (broken[0], broken[4]))
+            log(f"{line}, planted fault ({fault}): parameters max |Δ| {numbers['param_diff']:.3e}, Adam step counts "
+                f"{numbers['adam_updates']}, every step's NMAE max |Δ| {numbers['nmae_diff']:.3e}: "
+                f"{'missed' if caught else 'caught'}")
+            check(not caught, f"{label}: the equality check missed a planted fault ({fault})")
+            result[f"fault_{fault}"] = numbers
+            del broken
+        del eager, graphed
+    if rates:
+        fits, numbers = {}, {}
+        for k in (1, GRAPH_K):
+            fits[k], seconds, rate, gaps, _ = fit(k, GRAPH_TRAIN)
+            numbers[k] = {"seconds": seconds, "rate": rate, "gaps": gaps}
+        _, params, moments = _state_diff(fits[1], fits[GRAPH_K])
+        check(_adam_updates(fits[1]) == _adam_updates(fits[GRAPH_K]), f"{label}: Adam's step counts differ")
+        for k, trainer in fits.items():
+            busy, wall, launches, graphs, records = _traced(
+                lambda: trainer.fit(trainer._model, train_dataloaders=unique[:GRAPH_K]))
+            numbers[k].update(busy=busy, launches=launches / GRAPH_K, graph_launches=graphs)
+        log(f"[trainer] (a) {label}: {GRAPH_TRAIN} steps, default algorithms: steady train examples/s k=1 "
+            f"{numbers[1]['rate']:.2f} (median of {numbers[1]['gaps']} step gaps), k={GRAPH_K} "
+            f"{numbers[GRAPH_K]['rate']:.2f} (median of {numbers[GRAPH_K]['gaps']} group gaps, all replays) "
+            f"({numbers[GRAPH_K]['rate'] / numbers[1]['rate']:.2f}x); states differ by {params:.3e} (parameters) / "
+            f"{moments:.3e} (Adam); traced {GRAPH_K}-step fit: busy {numbers[1]['busy']:.1%} / "
+            f"{numbers[GRAPH_K]['busy']:.1%}, host launches per optimiser step {numbers[1]['launches']:.1f} / "
+            f"{numbers[GRAPH_K]['launches']:.1f} ({numbers[GRAPH_K]['graph_launches']} graph launch)")
+        result.update({f"k{k}_{key}": value for k, values in numbers.items() for key, value in values.items()})
+        result.update(default_param_diff=params, default_adam_diff=moments)
+        del fits
+    torch.cuda.empty_cache()
+    log(f"[trainer] (a) {label}: {time.perf_counter() - began:.2f} s")
+    return result
+
+
+def _trainer_graphs(device, flagship, flagship_model):
+    """Phase 12 (a): steps_per_execution as one CUDA graph of 8 steps."""
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.models import get_model
+
+    unique = flagship[:TRAIN_UNIQUE]
+    results = {
+        "conv3d_sat_nwp_fp32": _graph_cell(device, "conv3d_sat_nwp.yaml fp32, batch 32", flagship_model, unique, 32),
+        "conv3d_sat_nwp_bf16": _graph_cell(device, "conv3d_sat_nwp.yaml bf16, batch 32", flagship_model, unique, 32,
+                                           precision=16),
+        "conv3d_sat_nwp_accumulate2": _graph_cell(
+            device, "conv3d_sat_nwp.yaml fp32, batch 32, accumulate_grad_batches 2", flagship_model, unique, 32,
+            accumulate=2, rates=False),
+    }
+    config = PERCEIVERS["perceiver"]
+    cls, kwargs = get_model("perceiver"), {k: v for k, v in config.items() if k != "_target_"}
+    model = serve.build_model("perceiver", config, seed=0)
+    unique = list(serve.fake_loader(model, TRAIN_UNIQUE))
+    del model
+    batch_size = unique[0].satellite.data.shape[0]
+    results["perceiver_bf16"] = _graph_cell(device, f"perceiver.yaml bf16, batch {batch_size}", lambda: cls(**kwargs),
+                                            unique, batch_size, precision=16, faults=True)
+    return results
+
+
+def _trainer_lr_find(device, flagship, flagship_model):
+    """Phase 12 (b): ``lr_find(num_training=32)`` at full width."""
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    suggestion = trainer.lr_find(flagship_model(), train_dataloaders=flagship[:TRAIN_UNIQUE],
+                                 num_training=LR_FIND_STEPS)
+    seconds = time.perf_counter() - start
+    results = trainer.lr_find_results
+    check(len(results["lr"]) == len(results["loss"]) <= LR_FIND_STEPS and trainer._model is None
+          and np.isfinite(suggestion), "lr_find")
+    log(f"[trainer] (b) lr_find(num_training={LR_FIND_STEPS}) on conv3d_sat_nwp.yaml, batch 32: {len(results['lr'])} "
+        f"steps, lr {results['lr'][0]:.3e} → {results['lr'][-1]:.3e}, suggestion {suggestion:.4e}, {seconds:.2f} s")
+    return {"lr_find_suggestion": suggestion, "lr_find_seconds": seconds, "lr_find_steps": len(results["lr"])}
+
+
+def _trainer_wire(device, tree):
+    """Phase 12 (c): ``wire_float16`` True and ``"auto"`` on the v15 NetCDF
+    tree: bytes per batch, the fit's steady rate, the probe, and the
+    forecasts against the f32 wire's."""
+    from predict_pv_yield_tpu_torch.data.batch import Batch
+    from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule
+    from predict_pv_yield_tpu_torch.training.engine import Trainer, wire_cast
+
+    def datamodule(n_train=FORMAT_TRAIN):
+        return NetCDFDataModule(data_path=tree, num_workers=8, n_train_data=n_train, n_val_data=1)
+
+    dm = datamodule()
+    host = Batch.from_host(dm.train_dataloader().dataset[0]).numeric()
+    narrow = wire_cast(host)
+    sizes = [sum(leaf.numel() * leaf.element_size() for leaf in b.leaves()) for b in (host, narrow)]
+    log(f"[trainer] (c) bytes sent per batch from the NetCDF tree: {sizes[0] / 1e6:.3f} MB float32, "
+        f"{sizes[1] / 1e6:.3f} MB on the float16 wire ({1 - sizes[1] / sizes[0]:.1%} less; the int16 satellite "
+        f"counts and the OSGB coordinates keep their type)")
+
+    def trainer_for(wire, **kwargs):
+        trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None, wire_float16=wire,
+                          **kwargs)
+        trainer._adopt_configuration(dm)
+        return trainer
+
+    results = {"wire_bytes_f32": sizes[0], "wire_bytes_f16": sizes[1]}
+    for wire in (False, True):
+        trainer = trainer_for(wire)
+        trainer.setup(_flagship(dm.configuration))
+        seconds, steps, rate, _, _ = _marked_fit(trainer, 32, datamodule=datamodule())
+        check(steps == FORMAT_TRAIN and trainer._wire_cast_loaders == [], "the wire fit")
+        results[f"wire_{'f16' if wire else 'f32'}_examples_per_s"] = rate
+        log(f"[trainer] (c) fit from the NetCDF tree, wire_float16={wire}: {seconds:.3f} s, steady {rate:.2f} train "
+            f"examples/s")
+        del trainer
+    auto = trainer_for("auto")
+    auto._resolve_wire(dm.train_dataloader())
+    probe = auto.wire_probe
+    check(isinstance(auto.wire_float16, bool), "wire_float16='auto' did not resolve")
+    log(f"[trainer] (c) wire_float16='auto' probe (interleaved, after a warm-up of each): f32 ships "
+        + ", ".join(f"{t:.3f}" for t in probe["f32_ms"]) + " ms; f16 cast+ships "
+        + ", ".join(f"{t:.3f}" for t in probe["f16_ms"]) + f" ms → float16 wire {'ON' if auto.wire_float16 else 'OFF'}")
+    results.update({"wire_probe_f32_ms": probe["f32_ms"], "wire_probe_f16_ms": probe["f16_ms"],
+                    "wire_auto": auto.wire_float16})
+
+    auto.setup(_flagship(dm.configuration))
+    model = auto._model.eval()
+    from predict_pv_yield_tpu_torch.predict import forward_and_metrics
+    with torch.no_grad():
+        wide = forward_and_metrics(model, host.to(device), auto._satellite_channels)[0]
+        thin = forward_and_metrics(model, narrow.to(device), auto._satellite_channels)[0]
+    err, scale = float((thin - wide).abs().max()), float(wide.abs().max())
+    log(f"[trainer] (c) forecasts on the float16 wire vs the float32 wire: max |Δ| {err:.3e}, "
+        f"{err / scale / U16:.2f} float16 roundings (2^-11) of max |y| {scale:.4f} (limit {WIRE_TOL / U16:.0f})")
+    check(err <= WIRE_TOL * scale, "the float16 wire's forecasts are off")
+    results.update({"wire_forecast_err": err, "wire_forecast_scale": scale})
+    del auto, model
+    return results
+
+
+def _flagship(configuration=None):
+    """conv3d_sat_nwp.yaml's model, its data-dependent widths from
+    ``configuration`` where one is given."""
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+
+    model = Model(**{k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"})
+    if configuration is not None:
+        model.match_configuration(configuration)
+    return model
+
+
+def _trainer_loops(device, tree, flagship):
+    """Phase 12 (d): ``overfit_batches=2`` for 3 epochs, and
+    ``reload_dataloaders_every_epoch`` for 2 with the float16 wire."""
+    from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule
+    from predict_pv_yield_tpu_torch.training.callbacks import Callback
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    pulled = []
+
+    class Counting(list):
+        def __iter__(self):
+            for item in list.__iter__(self):
+                pulled.append(1)
+                yield item
+
+    trainer = Trainer(max_epochs=3, device=device, profiler=None, weights_summary=None, overfit_batches=2,
+                      save_validation_plots=False)
+    trainer.setup(_flagship())
+    trainer.fit(trainer._model, train_dataloaders=Counting(flagship[:TRAIN_UNIQUE]))
+    check(trainer.global_step == 6 and len(pulled) == 2 and "NMAE/Validation_epoch" in trainer.callback_metrics,
+          f"overfit_batches: {trainer.global_step} steps, {len(pulled)} batches pulled")
+    log(f"[trainer] (d) overfit_batches=2, 3 epochs: {trainer.global_step} steps on the 2 cached batches (pulled "
+        f"{len(pulled)} from the loader), validated on them: NMAE/Validation_epoch "
+        f"{trainer.callback_metrics['NMAE/Validation_epoch']:.6f}")
+    del trainer
+
+    inner = NetCDFDataModule(data_path=tree, num_workers=8, n_train_data=4, n_val_data=1)
+    made, seen = [], []
+
+    class Reloading:
+        configuration = inner.configuration
+
+        def train_dataloader(self):
+            made.append(inner.train_dataloader())
+            return made[-1]
+
+        def val_dataloader(self):
+            return inner.val_dataloader()
+
+    class WireSeen(Callback):
+        def on_train_epoch_end(self, trainer, model, metrics):
+            seen.append((len(made), getattr(made[-1].transform, "_engine_wire_cast", False)))
+
+    trainer = Trainer(max_epochs=2, device=device, profiler=None, weights_summary=None, wire_float16=True,
+                      reload_dataloaders_every_epoch=True, callbacks=[WireSeen()], save_validation_plots=False)
+    trainer._adopt_configuration(inner)
+    trainer.setup(_flagship(inner.configuration))
+    trainer.fit(trainer._model, datamodule=Reloading())
+    check(seen == [(1, True), (2, True)] and made[-1].transform is None and trainer.global_step == 8,
+          f"reload_dataloaders_every_epoch: {seen}")
+    log(f"[trainer] (d) reload_dataloaders_every_epoch, 2 epochs from the NetCDF tree: {len(made)} train loaders, "
+        f"each carrying the float16 cast in its workers while its epoch ran ({seen}), taken out after the fit")
+    return {"overfit_steps": 6, "reload_loaders": len(made)}
+
+
+def _read_tfevents(path):
+    """The records of a tfevents file, each CRC checked → their count."""
+    import struct
+
+    from predict_pv_yield_tpu_torch.training.tfevents import _masked_crc
+
+    records = 0
+    with open(path, "rb") as fh:
+        data = fh.read()
+    at = 0
+    while at < len(data):
+        header = data[at: at + 8]
+        (length,) = struct.unpack("<Q", header)
+        check(struct.unpack("<I", data[at + 8: at + 12])[0] == _masked_crc(header), f"record {records}: header CRC")
+        payload = data[at + 12: at + 12 + length]
+        check(len(payload) == length, f"record {records} is cut short")
+        check(struct.unpack("<I", data[at + 12 + length: at + 16 + length])[0] == _masked_crc(payload),
+              f"record {records}: payload CRC")
+        at += 16 + length
+        records += 1
+    check(records > 1 and b"brain.Event:2" in data[:64], "the tfevents file's first record")
+    return records
+
+
+def _trainer_loggers(device, flagship):
+    """Phase 12 (e): a fit with ``logger=many_loggers`` (its tfevents file
+    read back record by record), the SaaS loggers without their clients,
+    the validation plots."""
+    import glob
+    import logging
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.config.instantiate import instantiate
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+    from predict_pv_yield_tpu_torch.training.loggers import JSONLLogger
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            loggers = [instantiate(node) for node in MANY_LOGGERS.values()]
+            trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None, logger=loggers)
+            trainer.setup(_flagship())
+            trainer.fit(trainer._model, train_dataloaders=flagship[:2], val_dataloaders=flagship[TRAIN_UNIQUE:][:2])
+            for lg in loggers:
+                lg.finalize()
+            events = glob.glob("tensorboard/default/version_0/events.out.tfevents.*")
+            check(len(events) == 1, f"tfevents files: {events}")
+            records = _read_tfevents(events[0])
+            try:
+                import matplotlib  # noqa: F401
+                plots = sorted(glob.glob(os.path.join(loggers[0].log_dir, "validation_plot_epoch_0_*.html")))
+                check(len(plots) == 2 and all(open(p).read().startswith("<!DOCTYPE html>") for p in plots),
+                      f"validation plots: {plots}")
+                note = f"{len(plots)} validation plots written as HTML ({os.path.basename(plots[0])}, …)"
+            except ImportError:
+                note = "matplotlib is not installed here: no validation plot is written (said once per run)"
+            log(f"[trainer] (e) fit with logger=many_loggers (csv + tensorboard): the tfevents file parses back into "
+                f"{records} records with valid CRCs; {note}")
+
+            warnings = []
+
+            class Catch(logging.Handler):
+                def emit(self, record):
+                    warnings.append(record.getMessage())
+
+            handler = Catch(level=logging.WARNING)
+            logging.getLogger("predict_pv_yield_tpu_torch.training.loggers").addHandler(handler)
+            clients = {"wandb": "wandb", "neptune": "neptune", "mlflow": "mlflow", "comet": "comet_ml"}
+            hidden = {name: sys.modules.get(name) for name in clients.values()}
+            try:
+                for name in clients.values():  # the fallback is what is checked: no client may reach a server
+                    sys.modules[name] = None
+                for backend, node in SAAS.items():
+                    logger = instantiate(node)
+                    check(isinstance(logger._fallback, JSONLLogger), f"{backend}: no JSONL fallback")
+                    logger.log_metrics({"NMAE/Train": 0.5}, step=3)
+                    logger.finalize()
+                    path = os.path.join(logger._fallback.log_dir, "metrics.jsonl")
+                    check(os.path.exists(path) and '"NMAE/Train": 0.5' in open(path).read(), f"{backend}: JSONL")
+            finally:
+                for name, module in hidden.items():
+                    if module is None:
+                        sys.modules.pop(name, None)
+                    else:
+                        sys.modules[name] = module
+                logging.getLogger("predict_pv_yield_tpu_torch.training.loggers").removeHandler(handler)
+            check(all(any(b in w and "falling back" in w for w in warnings) for b in SAAS), f"warnings: {warnings}")
+            log(f"[trainer] (e) {', '.join(SAAS)} without their clients: each warned ({len(warnings)} warnings) and "
+                "wrote its metrics as JSONL")
+        finally:
+            os.chdir(cwd)
+    return {"tfevents_records": records}
+
+
+def _trainer_debug(device, flagship):
+    """Phase 12 (f): ``profiler="jax"``'s trace, and ``debug_nans`` on a
+    model with one parameter set to NaN at k = 1 and 8."""
+    import json as json_module
+    import os
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.training.engine import TRACE_DIR, Trainer
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            trainer = Trainer(max_epochs=1, device=device, profiler="jax", weights_summary=None)
+            trainer.setup(_flagship())
+            trainer.fit(trainer._model, train_dataloaders=flagship[:4])
+            files = os.listdir(TRACE_DIR)
+            with open(os.path.join(TRACE_DIR, files[0])) as fh:
+                trace = json_module.load(fh)
+            kernels = sum(1 for e in trace.get("traceEvents", []) if e.get("cat") == "kernel")
+            check(len(files) == 1 and kernels > 0, f"the device trace: {files}, {kernels} kernel events")
+            log(f"[trainer] (f) profiler='jax': {TRACE_DIR}/{files[0]} holds {kernels} CUDA kernel events of a "
+                "4-step fit")
+        finally:
+            os.chdir(cwd)
+    messages = {}
+    for k in (1, GRAPH_K):
+        trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None, debug_nans=True,
+                          steps_per_execution=k)
+        trainer.setup(_flagship())
+        with torch.no_grad():
+            trainer._model.fc1.weight[0, 0] = float("nan")
+        try:
+            trainer.fit(trainer._model, train_dataloaders=flagship[:GRAPH_K])
+        except FloatingPointError as exc:
+            messages[k] = str(exc)
+        check(k in messages and "fc1.weight" in messages[k], f"debug_nans at k={k}: {messages.get(k)}")
+        log(f"[trainer] (f) debug_nans, steps_per_execution {k}, fc1.weight[0, 0] = NaN: FloatingPointError: "
+            f"{messages[k]}")
+        del trainer
+    return {"trace_kernel_events": kernels}
+
+
+def phase_trainer(device, tree):
+    """Phase 12: the Trainer's knobs at full width — CUDA graphs of k steps,
+    lr_find, the float16 wire, overfit/reload, the loggers and plots,
+    debug_nans and the device trace."""
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    blur.launches = 0
+    start = time.perf_counter()
+    dataset = FakeDataset(model_configuration(_flagship()), length=TRAIN_UNIQUE + VAL_BATCHES)
+    flagship = [dataset[i] for i in range(TRAIN_UNIQUE + VAL_BATCHES)]  # phase 7's batches, from the same seed
+    results = {"graphs": _trainer_graphs(device, flagship, _flagship)}
+    results.update(_trainer_lr_find(device, flagship, _flagship))
+    results.update(_trainer_wire(device, tree))
+    results.update(_trainer_loops(device, tree, flagship))
+    results.update(_trainer_loggers(device, flagship))
+    results.update(_trainer_debug(device, flagship))
+    check(blur.launches == 0, "the trainer phase launched sep_blur")
+    results["seconds"] = time.perf_counter() - start
+    log(f"[trainer] phase 12: {results['seconds']:.2f} s; sep_blur launched {blur.launches} times")
     return results
 
 
@@ -2791,7 +3411,9 @@ def main() -> int:
     data = phase_data(device, trained)
     perceivers = phase_perceiver(device, bandwidth, flops_peak, data["baseline_nmae"])
     zoo = phase_zoo(device, bandwidth, flops_peak, bf16_peak, serve, trained, perceivers, data["baseline_nmae"])
-    formats = phase_formats(device, trained, data)
+    with tempfile.TemporaryDirectory() as tmp:
+        formats, tree = phase_formats(device, trained, data, tmp)
+        trainer = phase_trainer(device, tree)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -2812,7 +3434,8 @@ def main() -> int:
         "call_ms": headline["call_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
-                    **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats}))
+                    **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats,
+                    "trainer": trainer}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 
 Every target the ported slices need — the JAX package's class paths and the
 reference's torch / Lightning / OCF paths — maps to the port's class, so the
-``configs/`` tree composes and instantiates unchanged. A known target that
-the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item. Targets of this package import as themselves.
+``configs/`` tree composes and instantiates unchanged. Any other target of
+those packages raises ``NotImplementedError``. Targets of this package
+import as themselves.
 """
 
 from __future__ import annotations
@@ -19,7 +19,15 @@ from predict_pv_yield_tpu_torch.data.loader import NetCDFDataModule, ZarrStreamD
 from predict_pv_yield_tpu_torch.models import MODEL_TARGETS
 from predict_pv_yield_tpu_torch.training.callbacks import EarlyStopping, ModelCheckpoint
 from predict_pv_yield_tpu_torch.training.engine import Trainer
-from predict_pv_yield_tpu_torch.training.loggers import CSVLogger, JSONLLogger
+from predict_pv_yield_tpu_torch.training.loggers import (
+    CometLogger,
+    CSVLogger,
+    JSONLLogger,
+    MLFlowLogger,
+    NeptuneLogger,
+    TensorBoardLogger,
+    WandbLogger,
+)
 
 #: target → the port's class (exact string matches)
 TARGET_ALIASES: Dict[str, Callable] = {
@@ -37,24 +45,17 @@ TARGET_ALIASES: Dict[str, Callable] = {
     "predict_pv_yield_tpu.training.loggers.CSVLogger": CSVLogger,
     "pytorch_lightning.loggers.csv_logs.CSVLogger": CSVLogger,
     "predict_pv_yield_tpu.training.loggers.JSONLLogger": JSONLLogger,
+    "predict_pv_yield_tpu.training.loggers.TensorBoardLogger": TensorBoardLogger,
+    "pytorch_lightning.loggers.tensorboard.TensorBoardLogger": TensorBoardLogger,
+    "predict_pv_yield_tpu.training.loggers.WandbLogger": WandbLogger,
+    "pytorch_lightning.loggers.wandb.WandbLogger": WandbLogger,
+    "predict_pv_yield_tpu.training.loggers.NeptuneLogger": NeptuneLogger,
+    "pytorch_lightning.loggers.neptune.NeptuneLogger": NeptuneLogger,
+    "predict_pv_yield_tpu.training.loggers.MLFlowLogger": MLFlowLogger,
+    "pytorch_lightning.loggers.mlflow.MLFlowLogger": MLFlowLogger,
+    "predict_pv_yield_tpu.training.loggers.CometLogger": CometLogger,
+    "pytorch_lightning.loggers.comet.CometLogger": CometLogger,
 }
-
-_SAAS = "T7: the TensorBoard and SaaS loggers"
-
-#: targets the port does not have yet → their ROADMAP item
-NOT_PORTED: Dict[str, str] = {
-    "predict_pv_yield_tpu.training.loggers.TensorBoardLogger": _SAAS,
-    "pytorch_lightning.loggers.tensorboard.TensorBoardLogger": _SAAS,
-    "predict_pv_yield_tpu.training.loggers.WandbLogger": _SAAS,
-    "pytorch_lightning.loggers.wandb.WandbLogger": _SAAS,
-    "predict_pv_yield_tpu.training.loggers.NeptuneLogger": _SAAS,
-    "pytorch_lightning.loggers.neptune.NeptuneLogger": _SAAS,
-    "predict_pv_yield_tpu.training.loggers.MLFlowLogger": _SAAS,
-    "pytorch_lightning.loggers.mlflow.MLFlowLogger": _SAAS,
-    "predict_pv_yield_tpu.training.loggers.CometLogger": _SAAS,
-    "pytorch_lightning.loggers.comet.CometLogger": _SAAS,
-}
-
 #: packages whose targets resolve only through the tables above
 _FOREIGN = (
     "predict_pv_yield_tpu", "pytorch_lightning", "predict_pv_yield", "nowcasting_dataloader",
@@ -69,8 +70,6 @@ def locate(target: str) -> Any:
     """The class or function a ``_target_`` names."""
     if target in TARGET_ALIASES:
         return TARGET_ALIASES[target]
-    if target in NOT_PORTED:
-        raise NotImplementedError(f"{target!r} is not ported yet (ROADMAP {NOT_PORTED[target]})")
     if target.split(".", 1)[0] in _FOREIGN:
         raise NotImplementedError(
             f"{target!r} has no counterpart in the port (config/instantiate.py TARGET_ALIASES); "

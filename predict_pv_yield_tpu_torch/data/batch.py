@@ -192,6 +192,21 @@ class Batch:
         """Every tensor copied into page-locked host memory (needs CUDA)."""
         return self.map(lambda name, x: x.pin_memory())
 
+    @classmethod
+    def stack(cls, batches, pin_memory: bool = False) -> "Batch":
+        """Batches with the same fields set → one batch whose every leaf has
+        a new leading axis of ``len(batches)`` (a group of train steps).
+        With ``pin_memory`` the leaves are stacked straight into page-locked
+        host memory (needs CUDA)."""
+        columns = iter(list(zip(*(b.leaves() for b in batches))))
+
+        def stacked(name, x):
+            leaves = [torch.as_tensor(leaf) for leaf in next(columns)]
+            out = torch.empty((len(leaves), *leaves[0].shape), dtype=leaves[0].dtype, pin_memory=pin_memory)
+            return torch.stack(leaves, out=out)
+
+        return batches[0].map(stacked)
+
     @property
     def batch_size(self) -> int:
         for leaf in self.leaves():

@@ -1,12 +1,13 @@
-"""OSGB36 National Grid conversions (a copy of the part of the JAX package's
-``geo.py`` that the data sources need; the coastline basemap is plotting,
-ROADMAP T6).
+"""OSGB36 National Grid conversions and a coarse coastline of Great Britain
+(a copy of the JAX package's ``geo.py``).
 
 * :func:`osgb_from_latlon` / :func:`latlon_from_osgb` — WGS84 ↔ OSGB36
   National Grid, implemented as the standard 7-parameter Helmert datum
   transform plus the Ordnance Survey's transverse-Mercator projection on the
   Airy 1830 ellipsoid (constants from the OS "A guide to coordinate systems
   in Great Britain"). Accuracy a few metres — far below a satellite pixel.
+* :func:`gb_coastline_osgb` — a hand-digitised outline of Great Britain in
+  OSGB metres, the offline basemap of the validation plots.
 """
 
 from __future__ import annotations
@@ -151,3 +152,43 @@ def latlon_from_osgb(easting, northing) -> Tuple[np.ndarray, np.ndarray]:
     x, y, z = _helmert(x, y, z, -1.0)
     lat, lon = _cartesian_to_latlon(x, y, z, _WGS_A, _WGS_B)
     return np.degrees(lat), np.degrees(lon)
+
+
+#: Coarse Great Britain outline (WGS84 lat, lon) — offline basemap layer.
+#: Hand-digitised at ~30 km fidelity; orientation only, not navigation.
+GB_COASTLINE_LATLON = np.array([
+    (50.07, -5.70), (50.05, -5.20), (50.22, -4.80), (50.33, -4.20),
+    (50.37, -3.55), (50.61, -3.40), (50.72, -3.05), (50.60, -2.45),
+    (50.58, -1.95), (50.73, -1.70), (50.78, -1.10), (50.73, -0.75),
+    (50.80, -0.20), (50.85, 0.30), (51.13, 1.35), (51.37, 1.45),
+    (51.45, 0.90), (51.48, 0.55), (51.53, 0.70), (51.72, 0.95),
+    (51.78, 1.15), (51.95, 1.30), (52.08, 1.60), (52.45, 1.73),
+    (52.93, 1.30), (52.97, 0.65), (52.87, 0.20), (53.05, 0.30),
+    (53.35, 0.15), (53.60, 0.05), (53.63, -0.25), (53.70, -0.55),
+    (53.63, -0.10), (54.05, -0.20), (54.15, -0.40), (54.50, -0.60),
+    (54.65, -1.10), (54.95, -1.45), (55.40, -1.60), (55.80, -2.00),
+    (56.00, -2.60), (56.05, -3.30), (56.10, -2.85), (56.45, -2.70),
+    (56.70, -2.45), (57.10, -2.05), (57.50, -1.80), (57.70, -2.10),
+    (57.68, -3.10), (57.60, -4.00), (57.85, -3.90), (58.20, -3.40),
+    (58.60, -3.10), (58.62, -4.50), (58.50, -5.10), (58.25, -5.25),
+    (57.95, -5.35), (57.85, -5.70), (57.55, -5.80), (57.35, -5.65),
+    (57.25, -5.75), (56.95, -5.80), (56.75, -6.00), (56.65, -5.90),
+    (56.50, -5.60), (56.35, -5.45), (56.10, -5.60), (55.90, -5.65),
+    (55.30, -5.50), (55.00, -5.15), (54.85, -4.95), (54.70, -4.90),
+    (54.85, -4.35), (54.65, -3.95), (54.50, -3.60), (54.20, -3.25),
+    (54.05, -2.90), (53.95, -3.05), (53.75, -3.05), (53.55, -3.10),
+    (53.35, -3.35), (53.30, -3.85), (53.30, -4.55), (53.10, -4.35),
+    (52.90, -4.75), (52.80, -4.15), (52.55, -4.05), (52.30, -4.10),
+    (52.10, -4.45), (51.95, -5.20), (51.70, -5.10), (51.60, -4.90),
+    (51.55, -4.20), (51.70, -4.00), (51.60, -3.60), (51.50, -3.20),
+    (51.45, -2.90), (51.60, -2.60), (51.45, -2.95), (51.20, -3.45),
+    (51.20, -4.20), (51.05, -4.55), (50.70, -4.60), (50.35, -5.15),
+    (50.07, -5.70),
+])
+
+
+def gb_coastline_osgb() -> Tuple[np.ndarray, np.ndarray]:
+    """The coastline as OSGB (easting, northing) arrays, computed on demand."""
+    lat = GB_COASTLINE_LATLON[:, 0]
+    lon = GB_COASTLINE_LATLON[:, 1]
+    return osgb_from_latlon(lat, lon)

@@ -72,10 +72,15 @@ class BaseModel(nn.Module):
 
     def compute_precision(self, device: torch.device) -> ContextManager:
         """The context the forward runs in on ``device``: autocast to
-        ``compute_dtype``, or nothing for fp32."""
+        ``compute_dtype``, or nothing for fp32. Autocast keeps no cache of
+        cast weights: a weight is cast at each use and the gradients of its
+        uses are summed in fp32, as the JAX package's per-use cast does. A
+        cache would sum a weight used more than once (the Perceiver's) in
+        bf16 first, and cannot be kept inside a CUDA graph of train steps,
+        so eager steps would not equal graphed ones."""
         if self.compute_dtype is None:
             return contextlib.nullcontext()
-        return torch.autocast(torch.device(device).type, dtype=self.compute_dtype)
+        return torch.autocast(torch.device(device).type, dtype=self.compute_dtype, cache_enabled=False)
 
     @property
     def seq_lens(self) -> SeqLens:

@@ -26,7 +26,7 @@ from __future__ import annotations
 import argparse
 import csv
 from collections import deque
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,9 +85,14 @@ def channel_names_of(source) -> Optional[Tuple[str, ...]]:
 _PREFETCH_DEPTH = 2
 
 
-def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_DEPTH) -> Iterator[Tuple[Batch, Batch]]:
-    """Host batches → ``(host, device)`` pairs, with ``depth`` batches in
-    flight (the trainer passes its ``prefetch_depth``).
+def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_DEPTH,
+                 cast=None) -> Iterator[Tuple[Any, Batch]]:
+    """Host batches → ``(host, device)`` pairs, with ``depth`` items in
+    flight (the trainer passes its ``prefetch_depth``). ``cast`` maps the
+    numeric host batch before it is sent (the trainer's ``wire_float16``);
+    the host batch is yielded as it came. An item that is a list of host
+    batches (the trainer's group of k steps) is sent as one batch stacked
+    (k, B, …) and yielded with the list of host batches.
 
     On the card each batch's numeric fields are copied into pinned host
     memory and sent with ``non_blocking`` copies on a stream of their own,
@@ -98,19 +103,29 @@ def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     queue: deque = deque()
     iterator: Optional[Iterator] = iter(loader)
+
+    def numeric(host: Batch) -> Batch:
+        return host.numeric() if cast is None else cast(host.numeric())
+
     while True:
         while iterator is not None and len(queue) < depth:
             try:
-                host = Batch.from_host(next(iterator))
+                item = next(iterator)
             except StopIteration:
                 iterator = None
                 break
-            numeric = host.numeric()
+            group = isinstance(item, list)
+            host = [Batch.from_host(x) for x in item] if group else Batch.from_host(item)
             if stream is None:
-                queue.append((host, numeric.to(device), None))
+                sent = Batch.stack([numeric(h) for h in host]) if group else numeric(host)
+                queue.append((host, sent.to(device), None))
                 continue
             with torch.cuda.stream(stream):
-                moved = numeric.pin_memory().to(device, non_blocking=True)
+                if group:
+                    pinned = Batch.stack([numeric(h) for h in host], pin_memory=True)
+                else:
+                    pinned = numeric(host).pin_memory()
+                moved = pinned.to(device, non_blocking=True)
                 ready = torch.cuda.Event()
                 ready.record(stream)
             queue.append((host, moved, ready))

@@ -36,10 +36,36 @@ passes inside ``fit`` run in the same precision. Parameters are drawn at
 ``setup`` from ``torch.Generator().manual_seed(seed)``, as the JAX engine
 draws them from ``jax.random.key(seed)``.
 
-Knobs of the JAX engine that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item when set to anything but
-their default; the Lightning-compat keywords the JAX engine ignores are
-ignored here too.
+The rest of the JAX engine's surface:
+
+* ``steps_per_execution = k`` (the JAX engine's ``lax.scan`` of k steps):
+  k host batches ship as one (k, B, …) device group and train as k steps.
+  On the card the k steps are one ``torch.cuda.CUDAGraph``, captured per
+  phase of the accumulation window and input signature after the first
+  such group has run eagerly on a side stream (the warm-up is a real
+  group), then replayed once per group after the group is copied into the
+  captured input buffers. Adam runs in its ``capturable`` form there, its
+  step and learning rate device tensors. On the CPU the k steps run as a
+  plain loop. A short last group, or a ``limit`` that is not a multiple of
+  k, runs as single steps; metrics come back stacked (k,) and are logged
+  per step; mid-epoch validation, ``should_stop`` and checkpoints land on
+  group boundaries.
+* ``lr_find``/``tune``/``auto_lr_find``: the LR range test, exponential in
+  optimiser updates, EMA-smoothed, stopped early at 4× the best; its state
+  is thrown away afterwards.
+* ``wire_float16`` (True or ``"auto"``, probed on the example batch):
+  float32 host leaves narrow to float16 before the copy, except the OSGB
+  coordinate fields; in a ``PrefetchingLoader``'s worker threads while a
+  phase runs. The models upcast on the device.
+* ``overfit_batches``, ``reload_dataloaders_every_epoch``, ``debug_nans``
+  (``FloatingPointError`` at the first non-finite loss or gradient, naming
+  the step and the first parameter, module output or gradient at fault;
+  after each group with k > 1), ``profiler="jax"`` (a device trace of the
+  fit, written by ``torch.profiler``), and validation plots.
+
+``model_parallel`` and ``devices`` raise ``NotImplementedError`` naming
+their ROADMAP item when set to anything but their default; the
+Lightning-compat keywords the JAX engine ignores are ignored here too.
 """
 
 from __future__ import annotations
@@ -47,6 +73,8 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import os
+import tempfile
 import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
@@ -54,7 +82,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from predict_pv_yield_tpu_torch.data.batch import Batch
+from predict_pv_yield_tpu_torch.data.batch import Batch, as_batch
 from predict_pv_yield_tpu_torch.losses import WeightedLosses
 from predict_pv_yield_tpu_torch.models.base import is_bf16
 from predict_pv_yield_tpu_torch.models.layers import init_parameters
@@ -68,20 +96,47 @@ log = logging.getLogger(__name__)
 
 #: knob → (its default, the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "steps_per_execution": (1, "T2: steps_per_execution as a CUDA graph of k steps"),
-    "auto_lr_find": (False, "T3: lr_find, tune and auto_lr_find"),
-    "wire_float16": (False, "T4: wire_float16 and its 'auto' probe"),
-    "overfit_batches": (0.0, "T5: overfit_batches"),
-    "reload_dataloaders_every_epoch": (False, "T5: reload_dataloaders_every_epoch"),
-    "debug_nans": (False, "T10: debug_nans and the 'jax' profiler trace"),
     "model_parallel": (1, "T9: model_parallel and multi-device training (M14)"),
     "devices": (None, "T9: model_parallel and multi-device training (M14)"),
 }
+
+#: fields kept float32 on the float16 wire: OSGB eastings and northings
+#: (~1e5–1e6) overflow float16's 65504. By name, so a field's dtype does not
+#: change from batch to batch.
+WIRE_F16_SKIP = frozenset({"x", "y", "pv_location_x", "pv_location_y", "gsp_x", "gsp_y"})
+
+#: the directory ``profiler="jax"`` writes its trace into (the JAX engine's)
+TRACE_DIR = "jax_trace"
+#: ``wire_float16="auto"``: timed ships of each kind after a warm-up
+WIRE_PROBE_SAMPLES = 3
+#: validation batches plotted per validation pass (the first ones)
+PLOTTED_BATCHES = 5
 
 
 def _not_ported(knob: str, value) -> None:
     default, item = _NOT_PORTED[knob]
     raise NotImplementedError(f"Trainer({knob}={value!r}) is not ported yet (ROADMAP {item}); default {default!r}")
+
+
+def wire_cast(item):
+    """A batch (``Batch`` or nested dict, numpy or torch leaves) with every
+    float32 leaf narrowed to float16, except the fields in
+    ``WIRE_F16_SKIP``. Idempotent."""
+    def cast(name, leaf):
+        if name in WIRE_F16_SKIP:
+            return leaf
+        if isinstance(leaf, np.ndarray) and leaf.dtype == np.float32:
+            return leaf.astype(np.float16)
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.float32:
+            return leaf.to(torch.float16)
+        return leaf
+
+    def cast_dict(tree):
+        return {k: cast_dict(v) if isinstance(v, dict) else cast(k, v) for k, v in tree.items()}
+
+    if isinstance(item, dict):
+        return cast_dict(item)
+    return as_batch(item).map(cast)
 
 
 def _drop_first_batches(loader, k: int):
@@ -172,22 +227,13 @@ class Trainer:
         **lightning_compat: Any,
     ):
         for knob, value, changed in (
-            ("steps_per_execution", steps_per_execution, int(steps_per_execution) != 1),
-            ("auto_lr_find", auto_lr_find, bool(auto_lr_find)),
-            ("wire_float16", wire_float16, wire_float16 is not False),
-            ("overfit_batches", overfit_batches, bool(overfit_batches)),
-            ("reload_dataloaders_every_epoch", reload_dataloaders_every_epoch, bool(reload_dataloaders_every_epoch)),
-            ("debug_nans", debug_nans, bool(debug_nans)),
             ("model_parallel", model_parallel, int(model_parallel) != 1),
             ("devices", devices, devices is not None),
         ):
             if changed:
                 _not_ported(knob, value)
-        if profiler not in (None, "simple"):
-            raise NotImplementedError(
-                f"Trainer(profiler={profiler!r}): only 'simple' and None are ported "
-                "(ROADMAP T10: debug_nans and the 'jax' profiler trace)"
-            )
+        if profiler not in (None, "simple", "jax"):
+            raise ValueError(f"Trainer(profiler={profiler!r}): 'simple', 'jax' or None")
         if isinstance(val_check_interval, float) and not 0.0 <= val_check_interval <= 1.0:
             raise ValueError(
                 f"val_check_interval={val_check_interval}: a float must be an epoch fraction in "
@@ -195,8 +241,12 @@ class Trainer:
             )
         self.device = resolve_device(device)
         self.seed = seed
-        #: validation plots are not ported (ROADMAP T6); said once per run
+        #: truth-vs-forecast plots of the first validation batches, as HTML
+        #: artifacts (needs matplotlib; without it, said once per run)
         self.save_validation_plots = save_validation_plots
+        #: float32 host leaves narrow to float16 before the copy (True),
+        #: or the choice is measured on the example batch ("auto")
+        self.wire_float16 = wire_float16
         self.min_epochs = min_epochs
         self.max_epochs = max_epochs
         # checkpoint callbacks run last: a ModelCheckpoint snapshots every
@@ -211,6 +261,9 @@ class Trainer:
         self.bf16 = is_bf16(precision)
         self.fast_dev_run = bool(fast_dev_run)
         self.profiler = _SimpleProfiler() if profiler else None
+        #: ``profiler="jax"``: a ``torch.profiler`` device trace of the fit
+        #: in ``TRACE_DIR``
+        self.device_trace = profiler == "jax"
         self.resume_from_checkpoint = resume_from_checkpoint
         self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
         self.gradient_clip_val = float(gradient_clip_val)
@@ -221,18 +274,32 @@ class Trainer:
         #: None/1.0 → validate at epoch end only; a fraction → also every
         #: ``int(len(loader)·f)`` train batches; an int → every N batches
         self.val_check_interval = val_check_interval
+        self.reload_dataloaders_every_epoch = bool(reload_dataloaders_every_epoch)
         self.num_sanity_val_steps = max(0, int(num_sanity_val_steps))
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         self.limit_test_batches = limit_test_batches
+        #: 0 disables; a fraction in (0, 1) or a batch count: those first
+        #: train batches, cached on the host, are the train and the
+        #: validation set of every epoch
+        self.overfit_batches = overfit_batches
         #: -1 disables; p ≥ 0 logs the global p-norm of each batch's raw
         #: gradients as ``grad_{p}_norm_total``
         self.track_grad_norm = float(track_grad_norm)
         self.log_every_n_steps = max(1, int(log_every_n_steps))
         self.learning_rate = learning_rate
+        #: run ``lr_find`` before ``fit`` and adopt its suggestion; a dict
+        #: also gives ``lr_find`` keywords
+        self.auto_lr_find = bool(auto_lr_find)
+        self._auto_lr_find_kwargs: Dict[str, Any] = dict(auto_lr_find) if isinstance(auto_lr_find, dict) else {}
+        self.lr_find_results: Optional[Dict[str, Any]] = None
         self.weights_summary = weights_summary
         self.terminate_on_nan = terminate_on_nan
+        #: raise FloatingPointError at the first non-finite loss or gradient
+        self.debug_nans = bool(debug_nans)
         self.prefetch_depth = prefetch_depth
+        #: train steps per group (one CUDA graph on the card)
+        self.steps_per_execution = max(1, int(steps_per_execution))
         if lightning_compat:
             log.debug("ignoring Lightning-compat trainer args: %s", sorted(lightning_compat))
 
@@ -254,8 +321,14 @@ class Trainer:
         #: how many batches it holds (accumulate_grad_batches > 1)
         self._accumulated: Optional[List[torch.Tensor]] = None
         self._mini_step = 0
+        #: the learning rate Adam reads: a device tensor on the card (set in
+        #: place, so a captured graph sees a change), a float on the CPU
+        self._lr: Any = None
+        #: (accumulation phase, input signature) → (graph, static inputs, metrics)
+        self._graphs: Dict[tuple, tuple] = {}
         self._weighted: Optional[WeightedLosses] = None
         self._datamodule = None
+        self._wire_cast_loaders: List = []  # loaders holding the trainer's transform
         self._plots_noted = False
         #: satellite channels of the dataset configuration (decode stats)
         self._satellite_channels = None
@@ -291,6 +364,11 @@ class Trainer:
         self._model.load_state_dict(state["model"], strict=True)
         if self.optimizer is not None and state.get("optimizer") is not None:
             self.optimizer.load_state_dict(state["optimizer"])
+            # the trainer's learning rate, as the JAX engine's optimiser
+            # takes it from the trainer and not from the checkpoint
+            for group in self.optimizer.param_groups:
+                group["lr"] = self._lr
+        self._graphs = {}  # they hold the replaced optimiser state
         accumulation = state.get("accumulation")
         if accumulation:
             self._accumulated = [g.to(self.device).clone() for g in accumulation["grads"]]
@@ -338,12 +416,17 @@ class Trainer:
         })
         self._log_weights_summary(model)
         self._params = [p for p in model.parameters() if p.requires_grad]
-        # Adam with bias correction: the algebra of optax.adam (eps_root 0)
+        # Adam with bias correction: the algebra of optax.adam (eps_root 0);
+        # on the card in its capturable form (step and learning rate device
+        # tensors), so that k steps can run inside one CUDA graph
+        on_card = self.device.type == "cuda"
+        self._lr = torch.tensor(float(self.learning_rate), device=self.device) if on_card else float(self.learning_rate)
         self.optimizer = (
-            torch.optim.Adam(self._params, lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+            torch.optim.Adam(self._params, lr=self._lr, betas=(0.9, 0.999), eps=1e-8, capturable=on_card)
             if self._params else None
         )
         self._accumulated, self._mini_step = None, 0
+        self._graphs = {}
         self._weighted = WeightedLosses(forecast_length=model.forecast_len, device=self.device)
         if self.resume_from_checkpoint:
             self.state = load_state(self.resume_from_checkpoint)
@@ -424,6 +507,9 @@ class Trainer:
         """One train step on a device batch → its metrics (0-d device
         tensors, not synchronised)."""
         metrics, grads = self.loss_and_grads(batch)
+        capturing = self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+        if self.debug_nans and not capturing:
+            self._check_finite(batch, metrics["NMAE"], grads)
         if self.track_grad_norm >= 0:
             metrics[f"grad_{self.track_grad_norm}_norm_total"] = self._grad_norm(grads)
         if self.optimizer is not None:
@@ -471,6 +557,122 @@ class Trainer:
             for acc in self._accumulated:
                 acc.zero_()
 
+    # ------------------------------------------------------------------
+    def _train_steps(self, group: Batch) -> Dict[str, torch.Tensor]:
+        """The k train steps of a (k, B, …) group, one after the other →
+        their metrics stacked (k,): the plain version of the graph."""
+        rows = []
+        for i in range(next(group.leaves()).shape[0]):
+            rows.append(self.train_step(group.map(lambda name, x: x[i])))
+        return {key: torch.stack([row[key] for row in rows]) for key in rows[0]}
+
+    def train_group(self, group: Batch) -> Dict[str, torch.Tensor]:
+        """k train steps on a (k, B, …) device group → their metrics,
+        stacked (k,).
+
+        On the card the k steps run as one CUDA graph. There is one graph
+        per phase of the accumulation window at the group's start (which of
+        the k steps apply Adam is fixed at capture) and per input signature.
+        The first group of a new key runs eagerly on a side stream, which
+        warms up what the capture needs (cuBLAS and cuDNN handles, Adam's
+        state, the accumulation buffers, cached constants), and is then
+        captured with its own tensors as the graph's static inputs; later
+        groups are copied into them and the graph is replayed. On the CPU
+        the k steps run as a plain loop."""
+        if self.device.type != "cuda":
+            metrics = self._train_steps(group)
+        else:
+            metrics = self._train_graphed(group)
+        if self.debug_nans:
+            self._check_group(group, metrics)
+        return metrics
+
+    def _train_graphed(self, group: Batch) -> Dict[str, torch.Tensor]:
+        k = next(group.leaves()).shape[0]
+        phase = self._mini_step
+        key = (phase, tuple((tuple(x.shape), x.dtype) for x in group.leaves()))
+        entry = self._graphs.get(key)
+        if entry is None:
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                metrics = self._train_steps(group)
+            current.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            after = self._mini_step
+            self._mini_step = phase  # the capture replays the same window
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = self._train_steps(group)
+            self._mini_step = after
+            self._graphs[key] = (graph, list(group.leaves()), out)
+            return metrics
+        graph, static, out = entry
+        for buffer, leaf in zip(static, group.leaves()):
+            buffer.copy_(leaf)
+        graph.replay()
+        if self.accumulate_grad_batches > 1:
+            self._mini_step = (phase + k) % self.accumulate_grad_batches
+        return {name: value.clone() for name, value in out.items()}
+
+    # ------------------------------------------------------------------
+    def _check_finite(self, batch: Batch, loss: torch.Tensor, grads: List[torch.Tensor]) -> None:
+        """``debug_nans`` for one step: raise FloatingPointError naming the
+        step and what is at fault if the loss or a gradient is not finite."""
+        bad_grad = next((i for i, g in enumerate(grads) if not bool(torch.isfinite(g).all())), None)
+        if bool(torch.isfinite(loss)) and bad_grad is None:
+            return
+        names = [name for name, p in self._model.named_parameters() if p.requires_grad]
+        where = self._first_fault(batch)
+        if where is None and bad_grad is not None:
+            where = f"the gradient of {names[bad_grad]}"
+        raise FloatingPointError(
+            f"debug_nans: train step {self.global_step}: NMAE {float(loss)}; the first non-finite value is in {where}"
+        )
+
+    def _check_group(self, group: Batch, metrics: Dict[str, torch.Tensor]) -> None:
+        """``debug_nans`` after a group of k steps, as the JAX engine checks
+        after its scan: a non-finite loss or parameter raises
+        FloatingPointError naming the first such step."""
+        loss = metrics["NMAE"]
+        finite = torch.isfinite(loss)
+        params_ok = all(bool(torch.isfinite(p).all()) for p in self._params)
+        if bool(finite.all()) and params_ok:
+            return
+        i = int((~finite).nonzero()[0]) if not bool(finite.all()) else len(loss) - 1
+        where = self._first_fault(group.map(lambda name, x: x[i]))
+        raise FloatingPointError(
+            f"debug_nans: train step {self.global_step + i} (step {i} of a group of {len(loss)}): NMAE "
+            f"{float(loss[i])}; the first non-finite value is in {where}"
+        )
+
+    def _first_fault(self, batch: Batch) -> Optional[str]:
+        """The first parameter that is not finite, else the first module
+        whose output is not finite in a forward of ``batch`` (in call
+        order), else None."""
+        for name, p in self._model.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                return f"parameter {name}"
+        faults: List[str] = []
+
+        def hook(name):
+            def record(module, inputs, output):
+                tensors = output if isinstance(output, (tuple, list)) else (output,)
+                if not faults and any(isinstance(t, torch.Tensor) and t.is_floating_point()
+                                      and not bool(torch.isfinite(t).all()) for t in tensors):
+                    faults.append(f"the output of module {name or type(module).__name__}")
+            return record
+
+        handles = [m.register_forward_hook(hook(name)) for name, m in self._model.named_modules()]
+        try:
+            with torch.no_grad(), full_fp32():
+                forward_and_metrics(self._model, batch, self._satellite_channels, self._weighted)
+        finally:
+            for handle in handles:
+                handle.remove()
+        return faults[0] if faults else None
+
     def _eval_step(self, batch: Batch):
         with torch.no_grad(), full_fp32():
             return eval_step(self._model, batch, self._satellite_channels, self._weighted)
@@ -512,18 +714,194 @@ class Trainer:
             count += 1
             yield item
 
-    def _iter_batches(self, loader, limit: Optional[int]):
+    def _iter_batches(self, loader, limit: Optional[int], k: int = 1):
         """``(host, device)`` batch pairs, ``prefetch_depth`` in flight;
-        one batch in a ``fast_dev_run``."""
+        one batch in a ``fast_dev_run``. With ``k`` > 1, groups of k host
+        batches go as one (k, B, …) device batch with the list of host
+        batches, and the short last group (or what is left of a ``limit``
+        that is not a multiple of k) as single batches; ``prefetch_depth``
+        counts batches, so ceil(depth / k) groups are in flight."""
         limit = 1 if self.fast_dev_run else limit
-        return iter_batches(self._host_batches(loader, limit), self.device, depth=self.prefetch_depth)
+        hosts, depth = self._host_batches(loader, limit), self.prefetch_depth
+        if k > 1 and not self.fast_dev_run:
+            hosts, depth = _groups(hosts, k), -(-depth // k)
+        return iter_batches(hosts, self.device, depth=depth, cast=self._wire_cast)
 
     # ------------------------------------------------------------------
-    def lr_find(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.lr_find is not ported yet (ROADMAP T3: lr_find, tune and auto_lr_find)")
+    def _wire_cast(self, numeric: Batch) -> Batch:
+        """The float16 wire on the consumer thread (a no-op on a batch the
+        loader's workers have cast already)."""
+        return wire_cast(numeric) if self.wire_float16 is True else numeric
 
-    def tune(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.tune is not ported yet (ROADMAP T3: lr_find, tune and auto_lr_find)")
+    def _example_batch(self, loader) -> Batch:
+        """A batch of ``loader`` without consuming an epoch where it can:
+        its dataset's first item, its own first item, else the first of a
+        fresh iteration."""
+        dataset = getattr(loader, "dataset", None)
+        if dataset is not None and hasattr(dataset, "__getitem__"):
+            return Batch.from_host(dataset[0])
+        if hasattr(loader, "__getitem__"):
+            return Batch.from_host(loader[0])
+        iterator = iter(loader)
+        try:
+            return Batch.from_host(next(iterator))
+        finally:
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
+
+    def _resolve_wire(self, loader) -> None:
+        """``wire_float16="auto"`` → a bool, measured on ``loader``'s
+        example batch (once)."""
+        if self.wire_float16 == "auto" and loader is not None:
+            self.wire_float16 = self._resolve_wire_auto(self._example_batch(loader))
+
+    def _resolve_wire_auto(self, example: Batch) -> bool:
+        """Ship the example batch with and without the float16 cast and keep
+        the cast only if cast and copy beat the float32 copy. Each timed
+        ship goes the trainer's way (pinned memory, the copy stream) and
+        ends on a reduction of every leaf on the device brought to the host,
+        so the whole copy is inside the time. After a warm-up of each, the
+        f32 and f16 samples alternate, ``WIRE_PROBE_SAMPLES`` of each; their
+        medians decide."""
+        def ship(cast):
+            start = time.perf_counter()
+            for _, moved in iter_batches([example], self.device, depth=1, cast=cast):
+                total = torch.stack([leaf.float().abs().sum() for leaf in moved.leaves()]).sum()
+                total.item()
+            return time.perf_counter() - start
+
+        ship(None), ship(wire_cast)
+        samples = {"f32": [], "f16": []}
+        for _ in range(WIRE_PROBE_SAMPLES):
+            samples["f32"].append(ship(None))
+            samples["f16"].append(ship(wire_cast))
+        f32, f16 = (float(np.median(samples[name])) for name in ("f32", "f16"))
+        keep = f16 < f32
+        self.wire_probe = {"f32_ms": [t * 1e3 for t in samples["f32"]], "f16_ms": [t * 1e3 for t in samples["f16"]],
+                           "float16": keep}
+        log.info("wire_float16=auto: f32 ship %.3f ms vs f16 cast+ship %.3f ms (medians of %d interleaved) "
+                 "-> f16 wire %s", f32 * 1e3, f16 * 1e3, WIRE_PROBE_SAMPLES, "ON" if keep else "OFF")
+        return keep
+
+    def _offload_wire_cast(self, *loaders) -> None:
+        """Move the float16 cast into the worker threads of each
+        ``PrefetchingLoader`` (a ``transform``) for the phase; a transform
+        the caller installed is left alone. ``_remove_wire_cast`` takes it
+        out when the phase ends."""
+        for loader in loaders:
+            if loader is None or not hasattr(loader, "transform"):
+                continue
+            current = loader.transform
+            if current is not None and not getattr(current, "_engine_wire_cast", False):
+                continue
+            if self.wire_float16 is True:
+                def cast_batch(batch):
+                    return wire_cast(batch)
+
+                cast_batch._engine_wire_cast = True
+                loader.transform = cast_batch
+                self._wire_cast_loaders.append(loader)
+            else:
+                loader.transform = None
+
+    def _remove_wire_cast(self) -> None:
+        for loader in self._wire_cast_loaders:
+            if getattr(getattr(loader, "transform", None), "_engine_wire_cast", False):
+                loader.transform = None
+        self._wire_cast_loaders = []
+
+    # ------------------------------------------------------------------
+    def _set_lr(self, value: float) -> None:
+        """Set Adam's learning rate in place (the device tensor a captured
+        graph reads, or the float on the CPU)."""
+        if isinstance(self._lr, torch.Tensor):
+            self._lr.fill_(value)
+        else:
+            self._lr = float(value)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self._lr
+
+    def lr_find(self, model, datamodule=None, train_dataloaders=None, *, min_lr: float = 1e-8,
+                max_lr: float = 1.0, num_training: int = 100, early_stop_threshold: float = 4.0) -> float:
+        """The LR range test → the suggested learning rate.
+
+        Up to ``num_training`` train steps while the learning rate sweeps
+        exponentially from ``min_lr`` to ``max_lr`` in optimiser updates
+        (``accumulate_grad_batches`` micro-batches each), set in place
+        before each step. The loss is smoothed by an EMA (β = 0.98, bias
+        corrected) and the sweep stops once it exceeds
+        ``early_stop_threshold`` × the best; the suggestion is the learning
+        rate at the steepest descent of the smoothed curve, past its first
+        10 points. ``lr_find_results`` holds the series; the sweep's state
+        is thrown away, so the next ``fit`` starts afresh."""
+        train_loader, _ = self._resolve_loaders(datamodule, train_dataloaders, None)
+        if train_loader is None:
+            raise ValueError("lr_find() needs a datamodule or train_dataloaders")
+        self._resolve_wire(train_loader)
+        ratio = max_lr / min_lr
+        k = self.accumulate_grad_batches
+        span = max(-(-num_training // k) - 1, 1)
+        self.setup(model)
+        self._model.train()
+        lrs: List[float] = []
+        losses: List[float] = []
+        beta = 0.98
+        smoothed, best = 0.0, float("inf")
+        step, diverged = 0, False
+        try:
+            while step < num_training and not diverged:
+                advanced = False
+                for _, device_batch in self._iter_batches(train_loader, None):
+                    advanced = True
+                    lr = float(min_lr * ratio ** (min(step // k, span) / span))
+                    self._set_lr(lr)
+                    loss = float(self.train_step(device_batch)["NMAE"])
+                    if not np.isfinite(loss):
+                        diverged = True
+                        break
+                    smoothed = beta * smoothed + (1.0 - beta) * loss
+                    corrected = smoothed / (1.0 - beta ** (step + 1))
+                    lrs.append(lr)
+                    losses.append(corrected)
+                    step += 1
+                    if corrected > early_stop_threshold * best:
+                        diverged = True
+                        break
+                    best = min(best, corrected)
+                    if step >= num_training:
+                        break
+                if not advanced:
+                    raise ValueError("lr_find() got an empty train loader")
+        finally:
+            # drop the sweep's state: the next fit() sets up afresh
+            self._model, self.optimizer, self._params, self._graphs = None, None, [], {}
+            self._accumulated, self._mini_step = None, 0
+            self.global_step, self._last_val_step = 0, -1
+        if not losses:
+            raise ValueError(
+                f"lr_find diverged on the very first step (non-finite loss at min_lr={min_lr:g}); "
+                "check the data and the model's initialisation"
+            )
+        if len(losses) >= 3:
+            slope = np.gradient(np.asarray(losses))
+            lo = min(10, len(slope) - 2)
+            idx = int(np.argmin(slope[lo: len(slope) - 1])) + lo
+        else:
+            idx = int(np.argmin(losses))
+        suggestion = float(lrs[idx])
+        self.lr_find_results = {"lr": lrs, "loss": losses, "suggestion": suggestion}
+        return suggestion
+
+    def tune(self, model, datamodule=None, train_dataloaders=None, **lr_find_kwargs) -> Dict[str, Any]:
+        """Run the enabled tuners (the LR finder, with ``auto_lr_find``) and
+        adopt the suggestion as ``learning_rate``."""
+        out: Dict[str, Any] = {}
+        if self.auto_lr_find:
+            self.learning_rate = self.lr_find(model, datamodule, train_dataloaders,
+                                              **{**self._auto_lr_find_kwargs, **lr_find_kwargs})
+            out["lr_find"] = self.lr_find_results
+        return out
 
     def fit(self, model, datamodule=None, train_dataloaders=None, val_dataloaders=None):
         """The training loop → ``callback_metrics``."""
@@ -531,45 +909,64 @@ class Trainer:
         if train_loader is None:
             raise ValueError("fit() needs a datamodule or train_dataloaders")
         self._datamodule = datamodule
+        if self.auto_lr_find and not self.fast_dev_run and self._model is None and self.lr_find_results is None:
+            self.learning_rate = self.lr_find(model, train_dataloaders=train_loader, **self._auto_lr_find_kwargs)
+            log.info("auto_lr_find: adopting learning_rate=%.3e", self.learning_rate)
+        if self.overfit_batches:
+            train_loader, val_loader = self._overfit_loaders(train_loader)
+        self._resolve_wire(train_loader)
         if self._model is None:
             self.setup(model)
         model = self._model
 
+        trace = self._start_trace() if self.device_trace and is_main_process() else None
         for cb in self.callbacks:
             cb.on_fit_start(self, model)
         if self.num_sanity_val_steps and val_loader is not None and not self.fast_dev_run:
             self._sanity_check(val_loader)
 
         max_epochs = 1 if self.fast_dev_run else self.max_epochs
-        for epoch in range(self._fit_start_epoch, max_epochs):
-            self.current_epoch = epoch
-            # the shuffle permutation follows the global epoch number, so a
-            # resumed run's fresh loader fast-forwards through the right one
-            if hasattr(train_loader, "set_epoch"):
-                train_loader.set_epoch(epoch)
-            train_metrics = self._train_epoch(train_loader, val_loader)
-            for cb in self.callbacks:
-                cb.on_train_epoch_end(self, model, train_metrics)
-
-            run_val = (
-                val_loader is not None
-                and (epoch + 1) % self.check_val_every_n_epoch == 0
-                # a mid-epoch val on the last train batch covered the boundary
-                and self._last_val_step != self.global_step
-            )
-            if run_val:
-                val_metrics = self._eval_epoch(model, val_loader, tag="Validation")
+        self._offload_wire_cast(train_loader, val_loader)
+        try:
+            for epoch in range(self._fit_start_epoch, max_epochs):
+                self.current_epoch = epoch
+                if self.reload_dataloaders_every_epoch and epoch > 0 and datamodule is not None \
+                        and not self.overfit_batches:
+                    # fresh loaders from the datamodule (a loader passed in is
+                    # the caller's and is kept), with the wire cast again
+                    train_loader, val_loader = self._resolve_loaders(datamodule, train_dataloaders, val_dataloaders)
+                    self._offload_wire_cast(train_loader, val_loader)
+                # the shuffle permutation follows the global epoch number, so a
+                # resumed run's fresh loader fast-forwards through the right one
+                if hasattr(train_loader, "set_epoch"):
+                    train_loader.set_epoch(epoch)
+                train_metrics = self._train_epoch(train_loader, val_loader)
                 for cb in self.callbacks:
-                    cb.on_validation_epoch_end(self, model, val_metrics)
+                    cb.on_train_epoch_end(self, model, train_metrics)
 
-            if self.terminate_on_nan and not np.isfinite(train_metrics.get("NMAE/Train_epoch", 0.0)):
-                log.error("non-finite training loss; stopping")
-                break
-            if self.max_steps and self.global_step >= self.max_steps:
-                log.info("max_steps %d reached", self.max_steps)
-                break
-            if self.should_stop and self._early_stop_ok():
-                break
+                run_val = (
+                    val_loader is not None
+                    and (epoch + 1) % self.check_val_every_n_epoch == 0
+                    # a mid-epoch val on the last train batch covered the boundary
+                    and self._last_val_step != self.global_step
+                )
+                if run_val:
+                    val_metrics = self._eval_epoch(model, val_loader, tag="Validation")
+                    for cb in self.callbacks:
+                        cb.on_validation_epoch_end(self, model, val_metrics)
+
+                if self.terminate_on_nan and not np.isfinite(train_metrics.get("NMAE/Train_epoch", 0.0)):
+                    log.error("non-finite training loss; stopping")
+                    break
+                if self.max_steps and self.global_step >= self.max_steps:
+                    log.info("max_steps %d reached", self.max_steps)
+                    break
+                if self.should_stop and self._early_stop_ok():
+                    break
+        finally:
+            self._remove_wire_cast()
+            if trace is not None:
+                self._stop_trace(trace)
 
         for cb in self.callbacks:
             cb.on_fit_end(self, model)
@@ -577,6 +974,50 @@ class Trainer:
         if self.profiler is not None and is_main_process():
             log.info("%s", self.profiler.summary())
         return self.callback_metrics
+
+    def _start_trace(self):
+        """``profiler="jax"``: start a ``torch.profiler`` trace (host and, on
+        the card, device activity)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        trace = profile(activities=activities)
+        trace.__enter__()
+        return trace
+
+    def _stop_trace(self, trace) -> None:
+        """Write the fit's trace into ``TRACE_DIR`` as a Chrome trace (a
+        PyTorch trace, not a JAX one, under the directory name the JAX
+        engine uses), viewable in Perfetto or TensorBoard's profile plugin."""
+        trace.__exit__(None, None, None)
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        path = os.path.join(TRACE_DIR, f"fit_{os.getpid()}_{time.time_ns()}.pt.trace.json")
+        trace.export_chrome_trace(path)
+        self.trace_path = path
+        log.info("device trace of the fit: %s", path)
+
+    def _overfit_loaders(self, train_loader):
+        """``overfit_batches``: the first N train batches, cached on the
+        host, are both the train and the validation set of every epoch."""
+        overfit = self.overfit_batches
+        n = self._resolve_limit(float(overfit) if isinstance(overfit, float) else int(overfit), train_loader)
+        cached: List = []
+        iterator = iter(train_loader)
+        try:
+            while n is None or len(cached) < n:
+                item = next(iterator, None)
+                if item is None:
+                    break
+                cached.append(item)
+        finally:
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
+        if not cached:
+            raise ValueError("overfit_batches: train loader yielded no batches")
+        log.info("overfit_batches=%s: training and validating on the same %d cached batch(es)",
+                 overfit, len(cached))
+        return cached, cached
 
     def _sanity_check(self, loader) -> None:
         """``num_sanity_val_steps`` eval steps before training; metrics are
@@ -658,13 +1099,15 @@ class Trainer:
         # count from the resume position, so int cadences land where the
         # uninterrupted run's did
         batches_done = skip
-        for _, device_batch in self._iter_batches(loader, limit):
+        for host, device_batch in self._iter_batches(loader, limit, self.steps_per_execution):
+            group = isinstance(host, list)
+            n = len(host) if group else 1
             with self._time_phase("train_step"):
-                metrics = self.train_step(device_batch)
-            device_metrics.append(metrics)
-            self.global_step += 1
-            batches_done += 1
-            self._maybe_midepoch_val(val_every, batches_done - 1, batches_done, val_loader)
+                metrics = self.train_group(device_batch) if group else self.train_step(device_batch)
+            device_metrics.append(metrics)  # (k,)-stacked for a group
+            self.global_step += n
+            batches_done += n
+            self._maybe_midepoch_val(val_every, batches_done - n, batches_done, val_loader)
             # a stop asked for by a mid-epoch validation ends the epoch here
             if self.should_stop and self._early_stop_ok():
                 break
@@ -676,9 +1119,6 @@ class Trainer:
         results_parts, y_hats = [], []
         limit = self._resolve_limit(self.limit_test_batches if tag == "Test" else self.limit_val_batches, loader)
         validating = tag == "Validation"
-        if validating and self.save_validation_plots and not self._plots_noted:
-            log.info("validation plots are not written by the port (ROADMAP T6)")
-            self._plots_noted = True
 
         model.eval()
         try:
@@ -693,6 +1133,8 @@ class Trainer:
                     if part is not None:
                         results_parts.append(part)
                         y_hats.append(y_hat)
+                    if self.save_validation_plots and batch_idx < PLOTTED_BATCHES and is_main_process():
+                        self._plot_batch(model, host_batch, y_hat, batch_idx)
         finally:
             model.train()
 
@@ -724,6 +1166,38 @@ class Trainer:
             )
         return epoch_metrics
 
+    def _plot_batch(self, model, host_batch: Batch, y_hat: torch.Tensor, batch_idx: int) -> None:
+        """A truth-vs-forecast plot of a validation batch, logged as the
+        artifact ``validation_plot_epoch_{epoch}_{batch_idx}.html`` (written
+        as ``temp_{batch_idx}.html`` in a temporary directory, not in the
+        working directory as the JAX engine does). A plot that fails does
+        not stop training; without matplotlib none is written, which is said
+        once per run."""
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            if not self._plots_noted:
+                log.info("validation plots need matplotlib, which is not installed: none are written")
+                self._plots_noted = True
+            return
+        try:
+            from predict_pv_yield_tpu_torch.visualization import plot_batch_results
+
+            series = host_batch.gsp.gsp_yield if model.output_variable == "gsp_yield" else host_batch.pv.pv_yield
+            figure = plot_batch_results(
+                model_name=type(model).model_name,
+                y=series.numpy()[: model.batch_size, :, 0],
+                y_hat=y_hat.float().cpu().numpy()[: model.batch_size],
+            )
+            if figure is None:
+                return
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, f"temp_{batch_idx}.html")
+                figure.write_html(path)
+                self.logger.log_artifact(path, name=f"validation_plot_epoch_{self.current_epoch}_{batch_idx}.html")
+        except Exception:  # a plot never stops training
+            log.debug("validation plot of batch %d failed", batch_idx, exc_info=True)
+
     def _validation_inputs(self, model, host_batch: Batch, batch_idx: int) -> Optional[Dict[str, Any]]:
         """The host side of a batch's validation-results table: truths and
         capacities in MW, GSP ids, t0s. None unless the model forecasts on
@@ -753,8 +1227,10 @@ class Trainer:
         if not device_metrics:
             return {}
         keys = sorted(device_metrics[0])  # the JAX engine's order: its pytree sorts dict keys
-        table = torch.stack([torch.stack([m[k] for k in keys]) for m in device_metrics]).cpu().numpy()
-        start = self.global_step - len(device_metrics)
+        # a group's metrics are (k,) each: one row per step
+        rows = [torch.stack([m[k] for k in keys], dim=-1).reshape(-1, len(keys)) for m in device_metrics]
+        table = torch.cat(rows).cpu().numpy()
+        start = self.global_step - len(table)
         # log_every_n_steps thins the training rows only
         every = self.log_every_n_steps if tag == "Train" else 1
         for offset, row in enumerate(table):
@@ -777,10 +1253,15 @@ class Trainer:
             val_loader = dataloaders
         if datamodule is not None:
             self._datamodule = datamodule
+        self._resolve_wire(val_loader)
         if self._model is None:
             self.setup(model)
         model = self._model
-        metrics = self._eval_epoch(model, val_loader, tag="Validation")
+        self._offload_wire_cast(val_loader)
+        try:
+            metrics = self._eval_epoch(model, val_loader, tag="Validation")
+        finally:
+            self._remove_wire_cast()
         for cb in self.callbacks:
             cb.on_validation_epoch_end(self, model, metrics)
         self.logger.save()
@@ -795,9 +1276,25 @@ class Trainer:
             loader = datamodule.test_dataloader()
         if loader is None:
             raise ValueError("test() needs a datamodule or dataloaders")
+        self._resolve_wire(loader)
         if self._model is None:
             self.setup(model)
-        return self._eval_epoch(self._model, loader, tag="Test")
+        self._offload_wire_cast(loader)
+        try:
+            return self._eval_epoch(self._model, loader, tag="Test")
+        finally:
+            self._remove_wire_cast()
+
+
+def _groups(items, k: int):
+    """Lists of ``k`` consecutive items, then what is left one by one."""
+    group: List[Any] = []
+    for item in items:
+        group.append(item)
+        if len(group) == k:
+            yield group
+            group = []
+    yield from group
 
 
 def _global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:

@@ -9,6 +9,7 @@ import datetime
 import importlib.util
 import os
 import pathlib
+import sys
 
 import pytest
 
@@ -107,11 +108,12 @@ def test_instantiate_builds_port_objects(tmp_cwd):
     (["experiment=perceiver_tp", "trainer.precision=32"], ("trainer",), "T9"),
     (["model=cnn_rnn"], ("model",), None),
     (["model=cnn_concat_timesteps"], ("model",), None),
-    (["logger=tensorboard"], ("logger", "tensorboard"), "T7"),
-    (["logger=wandb"], ("logger", "wandb"), "T7"),
-    (["logger=many_loggers"], ("logger", "tensorboard"), "T7"),
+    (["logger=tensorboard"], ("logger", "tensorboard"), None),
+    (["logger=wandb"], ("logger", "wandb"), None),
+    (["logger=many_loggers"], ("logger", "tensorboard"), None),
 ])
-def test_instantiate_names_the_roadmap_item(overrides, section, item):
+def test_instantiate_names_the_roadmap_item(overrides, section, item, monkeypatch):
+    monkeypatch.setitem(sys.modules, "wandb", None)  # the JSONL fallback: no client may reach a server
     node = _compose(overrides)
     for key in section:
         node = node[key]

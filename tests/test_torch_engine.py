@@ -82,7 +82,12 @@ def _fit_both(tmp_cwd, length, callbacks=lambda side: [], **knobs):
     dict(max_epochs=2, val_check_interval=0.5, limit_train_batches=4, check_val_every_n_epoch=2, limit_val_batches=1),
     dict(max_epochs=3, max_steps=5, num_sanity_val_steps=1, limit_val_batches=3),
     dict(max_epochs=2, limit_train_batches=3, limit_val_batches=2, log_every_n_steps=3, val_check_interval=1.0),
-], ids=["log_every_fraction_limits", "val_int", "val_fraction_epoch_gate", "max_steps_sanity", "limits_int"])
+    dict(max_epochs=3, overfit_batches=2),
+    dict(max_epochs=2, overfit_batches=0.25, steps_per_execution=2),
+    dict(max_epochs=2, reload_dataloaders_every_epoch=True, limit_val_batches=1),
+    dict(max_epochs=1, steps_per_execution=3, limit_train_batches=7, val_check_interval=2, limit_val_batches=1),
+], ids=["log_every_fraction_limits", "val_int", "val_fraction_epoch_gate", "max_steps_sanity", "limits_int",
+        "overfit_int", "overfit_fraction_groups", "reload_explicit_loaders", "groups_val_int"])
 def test_metric_rows_match_jax(tmp_cwd, knobs):
     _fit_both(tmp_cwd, 8, **knobs)
 
@@ -280,32 +285,41 @@ def test_fast_dev_run_no_side_effects(tmp_cwd):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    # ported since (item None): precision 16/bf16 is accepted
+    # ported since (item None): the knob is accepted and kept
     ("precision", 16, None),
     ("precision", "bf16", None),
-    ("steps_per_execution", 4, "T2"),
-    ("auto_lr_find", True, "T3"),
-    ("wire_float16", "auto", "T4"),
-    ("overfit_batches", 2, "T5"),
-    ("reload_dataloaders_every_epoch", True, "T5"),
-    ("debug_nans", True, "T10"),
-    ("profiler", "jax", "T10"),
+    ("steps_per_execution", 4, None),
+    ("auto_lr_find", True, None),
+    ("wire_float16", "auto", None),
+    ("overfit_batches", 2, None),
+    ("reload_dataloaders_every_epoch", True, None),
+    ("debug_nans", True, None),
+    ("profiler", "jax", None),
     ("model_parallel", 2, "T9"),
     ("devices", [0], "T9"),
 ])
 def test_left_out_knobs_raise(knob, value, item):
     if item is None:
-        assert Trainer(device="cpu", **{knob: value}).bf16
+        trainer = Trainer(device="cpu", **{knob: value})
+        if knob == "precision":
+            assert trainer.bf16
+        elif knob == "profiler":
+            assert trainer.device_trace and trainer.profiler is not None
+        else:
+            assert getattr(trainer, knob) == value
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Trainer(device="cpu", **{knob: value})
 
 
 def test_left_out_methods_raise_and_compat_knobs_are_ignored():
+    """lr_find and tune are ported: without a loader lr_find raises
+    ValueError and tune without auto_lr_find runs no tuner; orbax
+    checkpoints (T8) still raise."""
     trainer = Trainer(device="cpu", gpus=0, progress_bar_refresh_rate=5, weights_save_path="x")
-    for method in (trainer.lr_find, trainer.tune):
-        with pytest.raises(NotImplementedError, match="ROADMAP T3"):
-            method(None)
+    with pytest.raises(ValueError, match="train_dataloaders"):
+        trainer.lr_find(None)
+    assert trainer.tune(None) == {} and trainer.learning_rate == 5e-4
     with pytest.raises(NotImplementedError, match="ROADMAP T8"):
         load_state(os.path.dirname(__file__))
 
