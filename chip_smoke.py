@@ -1,9 +1,10 @@
 """Drive the PyTorch / CUDA port on one GPU: the optical-flow nowcast, the
 conv3d_sat_nwp serve and train paths, the data path that feeds them, the
 perceiver family, the rest of the single-device zoo with bf16, the on-disk
-formats (NetCDF, blosc/LZ4, remote stores, the prepare step) and the
+formats (NetCDF, blosc/LZ4, remote stores, the prepare step), the
 Trainer's knobs (CUDA graphs of k steps, lr_find, the float16 wire,
-overfit/reload, loggers, plots, debug_nans, the device trace).
+overfit/reload, loggers, plots, debug_nans, the device trace) and the flow
+forecaster's training with the flow bench.
 
     python3 chip_smoke.py
 
@@ -142,10 +143,35 @@ Phases (any failure exits non-zero):
      that matplotlib is missing); (f) ``profiler="jax"``'s trace holding
      CUDA kernel events, and ``debug_nans`` raising ``FloatingPointError``
      naming ``fc1.weight`` set to NaN at k = 1 and 8;
- 13. the ``kernels`` line, then the result line.
+ 13. flow training: (a) one ``train_flow_forecaster.train_step`` of each of
+     the four forecasters at its default width (``FlowForecaster(32)``,
+     ``Conv2dAEForecaster(32)``, ``MaxPoolAEForecaster(32)``,
+     ``PureConv3dForecaster(128)``) at batch 4, card against CPU from the
+     same seed-0 weights on one seeded batch, under phase 7's one-step rules
+     (ReLU ties included) but with the parameters after Adam within 5e-5
+     (bar the elements whose gradient the measured card-vs-CPU gap could
+     carry across zero, counted),
+     and the step lowering the loss; (b) the JAX
+     tool's run at full width: a one-day drifting-cloud HRV zarr archive at
+     704×548 read through ``flow_nowcast.archive`` (``open_zarr``), a
+     testing range inside it, ``train`` of ``FlowForecaster(32)`` for 200
+     steps of 32 on 4 resident super batches with background refresh, then
+     ``evaluate`` over 8 testing batches: the super batches' build time, the
+     steady train examples/s (the median of the last 100 step gaps), the
+     busy share of a traced 20-step window, the step's device time (traced
+     again until the records sum to 90 % of the CUDA-event time), the same
+     run without background
+     refresh, peak device memory, ``sep_blur`` launches (a multiple of 9, at
+     least 36, the producer thread's included), the mean MSE of the first
+     and last 20 steps (the last below the first), the SSIM triple in
+     [−1, 1]; (c) 20 steps of each other forecaster on that dataset, finite
+     losses; (d) ``flow_bench.main()`` three times (the best headline
+     within 20 % of the best of phase 3's rate, measured again in turns with
+     it; a positive host single-core rate) and ``flow_bench.sweep()``;
+ 14. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
-path (phases 3 and 4) and read just after; the serve, train, data,
+path (phases 3, 4 and 13 (b)) and read just after; the serve, train, data,
 perceiver, zoo, formats and Trainer paths run no hand kernel (the JAX
 package computes them with XLA, outside any Pallas kernel; attention is
 PyTorch's ``scaled_dot_product_attention``; the LZ4 codec is host code; a
@@ -379,6 +405,28 @@ MANY_LOGGERS = {
 }
 
 
+#: phase 13: flow training at full width, at the JAX tool's defaults
+#: (tools/train_flow_forecaster.py): batch 32, 4 resident super batches,
+#: 48 forecast timesteps, 128→64 px crops, Adam 1e-4, 200 steps. The HRV
+#: zarr archive is one day of drifting-cloud frames at the production
+#: extent (cut from months: past four resident super batches the cost per
+#: step does not depend on the archive's length); under the tool's dates
+#: (from 2019-01-01T00:00) the day has 24 valid 4-hour windows, and the
+#: testing range below holds the last 13 of them
+FLOW_DAYS, FLOW_CHUNK = 1, 12
+FLOW_TESTING = (np.datetime64("2019-01-01T10:50"), np.datetime64("2019-01-01T12:00"))
+FLOW_STEPS, FLOW_BATCH, FLOW_SUPER_BATCHES, FLOW_LR = 200, 32, 4, 1e-4
+FLOW_STEADY = 100  # the steady rate: the median of the last 100 step gaps
+FLOW_EDGE = 20  # the first and last 20 losses are averaged to show learning
+FLOW_SMOKE_STEPS = FLOW_TRACED_STEPS = 20
+FLOW_EVAL_BATCHES = 8
+TRACE_COVERAGE = 0.9  # a traced busy step: kernel records sum to ≥ 90 % of the CUDA-event time
+FLOW_PARITY_BATCH = 4
+FLOW_PARAM_TOL = 5e-5  # parameters after one Adam step, card vs CPU (ROADMAP §1)
+BENCH_AGREEMENT = 0.2  # the bench's headline within 20 % of phase 3's rate
+BENCH_READINGS = 3  # bench headlines, each between two readings of phase 3's rate
+
+
 def log(message: str) -> None:
     print(message, flush=True)
 
@@ -390,20 +438,35 @@ def peaks(name: str):
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
+def _warm_session():
+    """A ``torch.profiler`` session of one warm-up step, which is not
+    recorded, then one recorded step; the caller ends each with
+    ``prof.step()``. A session opened after earlier sessions loses its first
+    few records of kernels loaded since those sessions, whether or not the
+    host syncs (on an H100, a third of the flow forecaster's cuDNN step in
+    phase 13, after phase 12's sessions); the warm-up step takes that loss."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+
+
 def _device_events(fn, calls: int, kernel: str | None = None, attempts: int = 3):
     """``torch.profiler``'s per-name device records (kernels and copies) of
-    ``calls`` calls after a warm-up call; with ``kernel``, only the names
-    that hold it. A trace that comes back without device records (CUPTI
-    now and then delivers none) is taken again, up to ``attempts`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
+    ``calls`` calls after a warm-up call in the session's warm-up step
+    (:func:`_warm_session`); with ``kernel``, only the names that hold it.
+    A trace that comes back without device records (CUPTI now and then
+    delivers none) is taken again, up to ``attempts`` times."""
     for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        torch.cuda.synchronize()
+        with _warm_session() as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         # user annotations (``Optimizer.step#Adam.step``) span kernels already counted
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False) and (kernel is None or kernel in e.key)]
@@ -641,9 +704,10 @@ def phase_nowcast(device):
     log(f"[nowcast] card vs CPU flows, pairs {pairs}: mean {mean_err:.3e} px, max {max_err:.3e} px")
     check(mean_err <= FLOW_MEAN_TOL and max_err <= FLOW_MAX_TOL, "card flows disagree with the CPU run")
 
-    rate = _flow_pairs_per_s(uint8.to(device), runs=10)
+    on_card = uint8.to(device)
+    rate = _flow_pairs_per_s(on_card, runs=10)
     log(f"[nowcast] flow_sequence {timesteps + 1}x{size}x{size}: {rate:.2f} pairs/s")
-    return loader, launches, rate
+    return loader, launches, rate, on_card
 
 
 def phase_requests(device, loader):
@@ -702,21 +766,23 @@ def phase_production(device):
 
 def _busy_share(fn, warm: bool = True, attempts: int = 3):
     """(share of the wall time the device is busy, wall seconds) of one
-    traced call (after a warm-up call unless ``warm`` is False): the union
-    of the kernel and copy intervals the profiler records on the card over
-    the host clock around the call. A trace without device records is
-    taken again, up to ``attempts`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if warm:
-        fn()
+    traced call (after a warm-up call in the session's warm-up step,
+    :func:`_warm_session`, unless ``warm`` is False): the union of the
+    kernel and copy intervals the profiler records on the card over the
+    host clock around the call. A trace without device records is taken
+    again, up to ``attempts`` times."""
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        with _warm_session() as prof:
+            if warm:
+                fn()
+                torch.cuda.synchronize()
+            prof.step()
             start = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
+            prof.step()
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False))
@@ -953,16 +1019,15 @@ def _rel_errs(grads, reference):
     return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, reference)]
 
 
-def _relu_decisions(trainer, host, decide=None):
-    """``trainer.loss_and_grads(host)`` with each ``F.relu`` call's decisions
-    (input > 0) and ties recorded on the host → (metrics, grads, decisions,
-    ties): a tie is an input within ``RELU_TIE`` × the call's largest |input|
-    of zero, recorded as that fraction (−1 elsewhere). With ``decide``
-    (another run's decisions, call by call) the ReLUs keep those inputs
-    instead of their own positive ones."""
-    import torch.nn.functional as F
-
-    relu, decisions, ties = F.relu, [], []
+@contextlib.contextmanager
+def _recorded_relus(namespace, decide=None):
+    """Inside the block, each ``namespace.relu`` call (``F.relu`` or
+    ``torch.relu``) records its decisions (input > 0) and ties on the host
+    into the yielded ``(decisions, ties)`` lists: a tie is an input within
+    ``RELU_TIE`` × the call's largest |input| of zero, recorded as that
+    fraction (−1 elsewhere). With ``decide`` (another run's decisions, call
+    by call) the ReLUs keep those inputs instead of their own positive ones."""
+    relu, decisions, ties = namespace.relu, [], []
 
     def recording_relu(x, inplace=False):
         positive = x > 0
@@ -972,11 +1037,21 @@ def _relu_decisions(trainer, host, decide=None):
         ties.append(torch.where(fraction <= RELU_TIE, fraction, -1.0).cpu())
         return relu(x) if decide is None else x * keep
 
-    F.relu = recording_relu
+    namespace.relu = recording_relu
     try:
-        metrics, grads = trainer.loss_and_grads(host)
+        yield decisions, ties
     finally:
-        F.relu = relu
+        namespace.relu = relu
+
+
+def _relu_decisions(trainer, host, decide=None):
+    """``trainer.loss_and_grads(host)`` with each ``F.relu`` call's decisions
+    and ties recorded (:func:`_recorded_relus`) → (metrics, grads,
+    decisions, ties)."""
+    import torch.nn.functional as F
+
+    with _recorded_relus(F, decide) as (decisions, ties):
+        metrics, grads = trainer.loss_and_grads(host)
     return metrics, grads, decisions, ties
 
 
@@ -3380,6 +3455,316 @@ def phase_trainer(device, tree):
     return results
 
 
+def _flow_step(make_model, batch, where, decide=None, mkldnn=True):
+    """One ``train_flow_forecaster.train_step`` (Adam, lr 1e-4) of a fresh
+    seed-0 model on ``where`` with its ``torch.relu`` calls recorded
+    (:func:`_recorded_relus`) → (loss, gradients, parameters after the step,
+    decisions, ties, the model, the batch on ``where``)."""
+    from predict_pv_yield_tpu_torch.train_flow_forecaster import train_step
+
+    model = make_model().to(where)
+    optimizer = torch.optim.Adam(model.parameters(), lr=FLOW_LR)
+    batch = {k: v.to(where) for k, v in batch.items()}
+    torch.backends.mkldnn.enabled = mkldnn
+    try:
+        with _recorded_relus(torch, decide) as (decisions, ties):
+            loss = float(train_step(model, optimizer, batch))
+    finally:
+        torch.backends.mkldnn.enabled = True
+    grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    params = {k: v.cpu() for k, v in model.state_dict().items()}
+    return loss, grads, params, decisions, ties, model, batch
+
+
+def _flow_parity(device, arch):
+    """(a) One step of ``arch`` at its default width, card against CPU, from
+    the seed-0 weights on one seeded batch of 4 at 128→64 px, under phase
+    7's rules (:func:`_train_parity`): the MSE within ``STEP_LOSS_TOL``;
+    every gradient within the larger of ``GRAD_REL_TOL`` and
+    ``GRAD_SPREAD_FACTOR`` × the CPU's own fp32 spread (oneDNN against
+    PyTorch's own kernels) of its largest entry, against the CPU's gradients
+    on the card's ReLU decisions, every decision the two disagree on a tie;
+    the parameters after Adam within ``FLOW_PARAM_TOL``. Adam's first step
+    moves an element by lr · g / (|g| + eps): where the card's gradient is
+    within ``gap`` of the CPU's and |g| > 2 · gap, the two steps differ by at
+    most lr / 2 (5e-5), but a gradient near zero may cross it and move its
+    element by up to 2·lr the other way. So the elements whose CPU gradient
+    lies within twice its tensor's measured gap (the largest |card − CPU|
+    gradient) of zero are exempt, and counted.
+    Then the step must lower the loss on that batch, as
+    tests/test_flow_forecaster_variants.py:77 asks of the JAX models."""
+    from predict_pv_yield_tpu_torch.models.flow_forecaster import (
+        FORECAST_HORIZON,
+        FORECASTER_ARCHITECTURES,
+        HISTORICAL_SAT_IMAGES,
+        OPTICAL_FLOW_PREDICTIONS,
+        TARGET_SAT_IMAGE,
+    )
+
+    def make_model():
+        return FORECASTER_ARCHITECTURES[arch](generator=torch.Generator().manual_seed(0))
+
+    generator = torch.Generator().manual_seed(1)
+    n, large, small = FLOW_PARITY_BATCH, 128, 64
+    batch = {
+        HISTORICAL_SAT_IMAGES: torch.randn((n, 4, large, large), generator=generator),
+        OPTICAL_FLOW_PREDICTIONS: torch.randn((n, large, large), generator=generator),
+        FORECAST_HORIZON: torch.randn((n,), generator=generator),
+        TARGET_SAT_IMAGE: torch.randn((n, small, small), generator=generator),
+    }
+    start = time.perf_counter()
+    card_loss, card_grads, card_params, card_decisions, _, model, on_card = _flow_step(make_model, batch, device)
+    with torch.no_grad():
+        after = float(torch.mean((model(on_card) - model.crop_target(on_card[TARGET_SAT_IMAGE])) ** 2))
+    cpu_loss, own, _, decisions, ties, _, _ = _flow_step(make_model, batch, "cpu")
+    native = _flow_step(make_model, batch, "cpu", mkldnn=False)[1]
+    _, cpu_grads, cpu_params, *_ = _flow_step(make_model, batch, "cpu", decide=card_decisions)
+    flips = [a != b for a, b in zip(decisions, card_decisions)]
+    n_flips = sum(int(f.sum()) for f in flips)
+    check(all(not (f & (t < 0)).any() for f, t in zip(flips, ties)),
+          f"{arch}: the card and the CPU decide a ReLU input that is not a tie differently")
+    loss_err = abs(card_loss - cpu_loss)
+    grad_errs = _rel_errs(card_grads.values(), cpu_grads.values())
+    spread = _rel_errs(native.values(), own.values())
+    grad_tol = max(GRAD_REL_TOL, GRAD_SPREAD_FACTOR * max(spread))
+    exempt = {k: g.abs() < 2 * (card_grads[k] - g).abs().max() for k, g in cpu_grads.items()}
+    n_exempt = sum(int(e.sum()) for e in exempt.values())
+    deltas = {k: (card_params[k] - cpu_params[k]).abs() for k in cpu_params}
+    param_err = max(float(torch.where(exempt[k], 0.0, d).max()) if k in exempt else float(d.max())
+                    for k, d in deltas.items())
+    exempt_err = max((float(deltas[k][e].max()) for k, e in exempt.items() if e.any()), default=0.0)
+    n_params = sum(v.numel() for v in cpu_params.values())
+    log(f"[flow-train] (a) {arch} ({n_params:,} parameters) one step at batch {n}, card vs CPU: MSE {card_loss:.7f} "
+        f"vs {cpu_loss:.7f} (|Δ| {loss_err:.3e}, limit {STEP_LOSS_TOL}); gradients max |Δ| / max |g| "
+        f"{max(grad_errs):.3e} on the card's ReLU decisions ({n_flips} ties decided the other way), the CPU's "
+        f"own spread {max(spread):.3e}, limit {grad_tol:.3e}; parameters after Adam max |Δ| {param_err:.3e} "
+        f"(limit {FLOW_PARAM_TOL}) over the {n_params - n_exempt:,} of {n_params:,} whose gradient is not within "
+        f"twice the measured gap of zero, {exempt_err:.3e} over those {n_exempt:,}; the card's MSE after the step "
+        f"{after:.7f}; "
+        f"{time.perf_counter() - start:.2f} s")
+    check(loss_err <= STEP_LOSS_TOL, f"{arch}: the card's MSE disagrees with the CPU's")
+    check(max(grad_errs) <= grad_tol, f"{arch}: a card gradient disagrees with the CPU's")
+    check(param_err <= FLOW_PARAM_TOL, f"{arch}: the card's Adam step disagrees with the CPU's")
+    check(after < card_loss, f"{arch}: one step did not lower the loss ({card_loss} → {after})")
+    return {"loss_err": loss_err, "grad_rel_err": max(grad_errs), "cpu_grad_spread": max(spread),
+            "relu_flips": n_flips, "param_err": param_err, "params_exempt": n_exempt, "exempt_err": exempt_err,
+            "loss_before": card_loss, "loss_after": after}
+
+
+@contextlib.contextmanager
+def _marked_flow_steps():
+    """Inside the block, ``train_flow_forecaster.train_step`` records a
+    CUDA event after each step into the yielded list."""
+    from predict_pv_yield_tpu_torch import train_flow_forecaster as tff
+
+    marks, step = [], tff.train_step
+
+    def marked_step(model, optimizer, batch):
+        loss = step(model, optimizer, batch)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return loss
+
+    tff.train_step = marked_step
+    try:
+        yield marks
+    finally:
+        tff.train_step = step
+
+
+def _steady_rate(marks) -> float:
+    """The median train examples/s of the last ``FLOW_STEADY`` step gaps."""
+    torch.cuda.synchronize()
+    gaps = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])][-FLOW_STEADY:]
+    return float(np.median([FLOW_BATCH * 1e3 / gap for gap in gaps]))
+
+
+def _settled_launches(dataset, quiet=3.0, timeout=300.0) -> int:
+    """``sep_blur.launches`` once the dataset's producer thread has filled
+    its queue and launched nothing for ``quiet`` seconds: it has then built
+    its last super batch (9 launches in quick succession) and waits on the
+    full queue."""
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    last, deadline = None, time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        count = blur.launches
+        if count == last and dataset._queue.full():
+            return count
+        last = count
+        time.sleep(quiet)
+    raise AssertionError(f"the super-batch producer did not settle in {timeout} s")
+
+
+def _traced_step_ms(step, attempts: int = 3):
+    """(device ms, CUDA-event ms, the profiler's records) per call of a
+    train step that keeps the card busy. A trace that drops kernel records
+    (see :func:`_warm_session`) sums to less than the card's time between
+    CUDA events around the same calls, so the trace is taken again until
+    its sum is within ``TRACE_COVERAGE`` of that time."""
+    calls = PERCEIVER_TRACED_CALLS
+    for attempt in range(1, attempts + 1):
+        events = _device_events(step, calls=calls)
+        traced_ms = sum(e.self_device_time_total for e in events) / calls / 1e3
+        evented_ms = call_ms(step, calls=calls)
+        if traced_ms >= TRACE_COVERAGE * evented_ms:
+            return traced_ms, evented_ms, events
+        log(f"[profiler] trace {attempt} sums to {traced_ms:.4f} ms a step, the CUDA events to {evented_ms:.4f} ms: "
+            f"records dropped; tracing again")
+    raise AssertionError(f"the profiler's step time {traced_ms:.4f} ms is not within {TRACE_COVERAGE:.0%} "
+                         f"of the CUDA events' {evented_ms:.4f} ms in {attempts} traces")
+
+
+def _flow_fit(device, tmp, flops_peak):
+    """(b) The JAX tool's run at full width from an HRV zarr archive, with
+    background refresh; its traced window; (c) the other three
+    architectures on its dataset; the same run without background refresh."""
+    import os
+
+    from predict_pv_yield_tpu_torch import train_flow_forecaster as tff
+    from predict_pv_yield_tpu_torch.data.flow_dataset import FlowInMemDataset, SatelliteFlowLoader
+    from predict_pv_yield_tpu_torch.data.zarr_reader import write_zarr
+    from predict_pv_yield_tpu_torch.flow_nowcast import archive, drifting_archive, evaluate
+    from predict_pv_yield_tpu_torch.models.flow_forecaster import FORECASTER_ARCHITECTURES, FlowForecaster
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    start = time.perf_counter()
+    frames, _ = drifting_archive(n_days=FLOW_DAYS, size=PRODUCTION, seed=0)
+    root = os.path.join(tmp, "hrv.zarr")
+    os.makedirs(root)
+    with open(os.path.join(root, ".zgroup"), "w") as fh:
+        json.dump({"zarr_format": 2}, fh)
+    write_zarr(os.path.join(root, "hrv"), frames, chunks=(FLOW_CHUNK, *PRODUCTION))
+    log(f"[flow-train] (b) wrote a {frames.shape} int16 drifting-cloud HRV archive ({frames.nbytes / 1e6:.1f} MB, "
+        f"zlib, chunks of {FLOW_CHUNK} frames) in {time.perf_counter() - start:.2f} s")
+    del frames
+    # the tool's dates; its June testing range lies outside this one day
+    lazy, datetimes, _ = archive(root, "hrv")
+    loader = SatelliteFlowLoader(data=lazy, datetimes=datetimes, num_forecast_timesteps=48,
+                                 testing_date_range=FLOW_TESTING, device=device)
+
+    def seeded(cls=FlowForecaster):
+        return cls(generator=torch.Generator().manual_seed(0)).to(device)
+
+    def dataset(background_refresh):
+        return FlowInMemDataset(loader, n_super_batches=FLOW_SUPER_BATCHES,
+                                n_examples_per_epoch=FLOW_STEPS * FLOW_BATCH, batch_size=FLOW_BATCH,
+                                background_refresh=background_refresh)
+
+    blur.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    refreshed = dataset(True)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - begin
+    model = seeded()
+    with _marked_flow_steps() as marks:
+        begin = time.perf_counter()
+        losses = tff.train(model, refreshed, FLOW_STEPS, FLOW_LR)
+        fit = time.perf_counter() - begin
+    rate_on = _steady_rate(marks)
+    scores = evaluate(model, loader, batch_size=FLOW_BATCH, n_batches=FLOW_EVAL_BATCHES)
+    launches = _settled_launches(refreshed)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    first, last = float(losses[:FLOW_EDGE].mean()), float(losses[-FLOW_EDGE:].mean())
+    log(f"[flow-train] (b) FlowForecaster(32) from the zarr archive at {PRODUCTION[0]}x{PRODUCTION[1]}: "
+        f"{FLOW_SUPER_BATCHES} resident super batches built in {build:.3f} s; {FLOW_STEPS} steps of "
+        f"{FLOW_BATCH} in {fit:.3f} s ({FLOW_STEPS * FLOW_BATCH / fit:.2f} examples/s), steady "
+        f"{rate_on:.2f} train examples/s (median of the last {FLOW_STEADY} step gaps), background refresh on; "
+        f"MSE first {FLOW_EDGE} {first:.5f}, last {FLOW_EDGE} {last:.5f}; "
+        + ", ".join(f"SSIM {k} {v:.4f}" for k, v in scores.items())
+        + f" ({FLOW_EVAL_BATCHES} testing batches); sep_blur launches {launches}; peak device memory {peak:.3f} GiB")
+    check(len(losses) == FLOW_STEPS and bool(torch.isfinite(losses).all()), "a non-finite flow-training loss")
+    check(last < first, f"the flow forecaster did not learn: {first} → {last}")
+    check(launches % 9 == 0 and launches >= 9 * FLOW_SUPER_BATCHES,
+          f"flow training launched sep_blur {launches} times: not 9 per super batch, or fewer than "
+          f"{FLOW_SUPER_BATCHES} super batches")
+    check(all(np.isfinite(v) and -1 <= v <= 1 for v in scores.values()), f"SSIM {scores}")
+
+    busy, wall = _busy_share(lambda: tff.train(model, refreshed, FLOW_TRACED_STEPS, FLOW_LR), warm=False)
+    batch = next(iter(refreshed))
+    optimizer = torch.optim.Adam(model.parameters(), lr=FLOW_LR)
+    step_ms, evented_ms, events = _traced_step_ms(lambda: tff.train_step(model, optimizer, batch))
+    flops = 6 * _layer_macs(model, batch)  # forward, and the two products of each layer's backward
+    bound_ms = flops / flops_peak * 1e3
+    log(f"[flow-train] (b) busy share of a traced {FLOW_TRACED_STEPS}-step window: {busy:.1%} "
+        f"({wall * 1e3:.3f} ms); the train step at batch {FLOW_BATCH}: {step_ms:.4f} ms of device time "
+        f"({evented_ms:.4f} ms between CUDA events on the same calls) against a {bound_ms:.4f} ms fp32 bound "
+        f"({flops / 1e9:.1f} GFLOP); top kernels:")
+    _top(events, "flow-train")
+
+    smoke = {}
+    for arch in ("conv2d_ae", "maxpool_ae", "pure_conv3d"):
+        begin = time.perf_counter()
+        arch_losses = tff.train(seeded(FORECASTER_ARCHITECTURES[arch]), refreshed, FLOW_SMOKE_STEPS, FLOW_LR)
+        seconds = time.perf_counter() - begin
+        check(bool(torch.isfinite(arch_losses).all()), f"{arch}: a non-finite loss")
+        smoke[arch] = {"first": float(arch_losses[0]), "last": float(arch_losses[-1]), "seconds": seconds}
+        log(f"[flow-train] (c) {arch}: {FLOW_SMOKE_STEPS} steps in {seconds:.3f} s, MSE "
+            f"{smoke[arch]['first']:.5f} → {smoke[arch]['last']:.5f}")
+
+    plain = dataset(False)
+    with _marked_flow_steps() as marks:
+        begin = time.perf_counter()
+        tff.train(seeded(), plain, FLOW_STEPS, FLOW_LR)
+        fit_off = time.perf_counter() - begin
+    rate_off = _steady_rate(marks)
+    del plain
+    log(f"[flow-train] (b) the same run with background_refresh=False: {FLOW_STEPS} steps in {fit_off:.3f} s "
+        f"({FLOW_STEPS * FLOW_BATCH / fit_off:.2f} examples/s), steady {rate_off:.2f} train examples/s "
+        f"(refresh on: {rate_on:.2f})")
+    return {"launches": launches, "build_s": build, "fit_examples_per_s": FLOW_STEPS * FLOW_BATCH / fit,
+            "steady_examples_per_s": rate_on, "fit_examples_per_s_no_refresh": FLOW_STEPS * FLOW_BATCH / fit_off,
+            "steady_examples_per_s_no_refresh": rate_off, "busy_share": busy, "step_ms": step_ms,
+            "step_event_ms": evented_ms,
+            "step_bound_ms": bound_ms, "peak_gib": peak,
+            "mse_first": first, "mse_last": last, "ssim": scores, "smoke": smoke}
+
+
+def _flow_bench(device, headline_frames, headline_rate):
+    """(d) ``flow_bench.main()`` and ``flow_bench.sweep()`` on the card: a
+    positive host rate, and the headline within ``BENCH_AGREEMENT`` of phase
+    3's rate. The flow path is host-bound and its pace drifts with the
+    host's (in one run on an H100, three readings of phase 3's rate a few
+    seconds apart spread 1247–1586 pairs/s, and two bench headlines
+    1438–1684), so phase 3's measurement is made again on its frames in
+    turns with the bench (phase 3, bench, …, phase 3: ``BENCH_READINGS``
+    bench readings), and the best reading of each side is compared: a
+    host-bound rate's best is steadier than its median."""
+    from predict_pv_yield_tpu_torch import flow_bench
+
+    beside, headlines = [_flow_pairs_per_s(headline_frames, runs=10)], []
+    for _ in range(BENCH_READINGS):
+        headlines.append(flow_bench.main(device))
+        beside.append(_flow_pairs_per_s(headline_frames, runs=10))
+    points = flow_bench.sweep(device)
+    bench, phase3 = max(h["value"] for h in headlines), max(beside)
+    agreement = bench / phase3 - 1
+    host = headlines[0]["host_single_core_pairs_per_sec"]
+    log(f"[flow-train] (d) flow_bench headline {', '.join(str(h['value']) for h in headlines)} pairs/s against "
+        f"phase 3's measurement in turns with it, {', '.join(f'{r:.2f}' for r in beside)}: best {bench:.2f} "
+        f"and {phase3:.2f} ({agreement:+.1%}; phase 3 at the start: {headline_rate:.2f}); host single core "
+        f"{', '.join(str(h['host_single_core_pairs_per_sec']) for h in headlines)} pairs/s")
+    check(abs(agreement) <= BENCH_AGREEMENT, "the bench's headline disagrees with phase 3's rate")
+    check(all(h["host_single_core_pairs_per_sec"] > 0 for h in headlines), "no host rate")
+    return {"bench": headlines, "sweep": points, "phase3_beside_bench": beside}
+
+
+def phase_flow_train(device, headline_frames, headline_rate, flops_peak):
+    """Phase 13: the flow forecasters' training step card vs CPU, the JAX
+    tool's run at full width from a zarr archive, and the flow bench."""
+    start = time.perf_counter()
+    results = {"parity": {arch: _flow_parity(device, arch)
+                          for arch in ("conv3d", "conv2d_ae", "maxpool_ae", "pure_conv3d")}}
+    with tempfile.TemporaryDirectory() as tmp:
+        results.update(_flow_fit(device, tmp, flops_peak))
+        results.update(_flow_bench(device, headline_frames, headline_rate))
+    results["seconds"] = time.perf_counter() - start
+    log(f"[flow-train] phase 13: {results['seconds']:.2f} s")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -3403,7 +3788,7 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(device, bandwidth, flops_peak)
-    loader, load_launches, headline_rate = phase_nowcast(device)
+    loader, load_launches, headline_rate, headline_frames = phase_nowcast(device)
     request_launches, _ = phase_requests(device, loader)
     production_rate = phase_production(device)
     serve = phase_serve(device, bandwidth, flops_peak)
@@ -3414,6 +3799,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         formats, tree = phase_formats(device, trained, data, tmp)
         trainer = phase_trainer(device, tree)
+    flow_train = phase_flow_train(device, headline_frames, headline_rate, flops_peak)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -3424,7 +3810,7 @@ def main() -> int:
         "route": "cuda",
         "source": "predict_pv_yield_tpu_torch/csrc/sep_blur.cu",
         "replaces": "predict_pv_yield_tpu/ops/pallas_blur.py:103",
-        "launches": load_launches + request_launches,
+        "launches": load_launches + request_launches + flow_train["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": headline["ms"],
         "plain_ms": headline["plain_ms"],
@@ -3435,7 +3821,7 @@ def main() -> int:
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
                     **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats,
-                    "trainer": trainer}))
+                    "trainer": trainer, "flow_train": flow_train}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ need them) — never JAX and nothing of ``predict_pv_yield_tpu``.
 Entry points take ``device=`` and default to ``"cuda"``; without a card they
 raise instead of falling back to the CPU (``utils.resolve_device``). The TPU
 kernels of the reference become hand-written CUDA kernels under ``csrc/``,
-built by ``_build.py`` at first use, as is the host LZ4 codec
-(``csrc/lz4.cpp``) of the blosc reader.
+built by ``_build.py`` at first use, as are the host LZ4 codec
+(``csrc/lz4.cpp``) of the blosc reader and the host Farnebäck library
+(``csrc/farneback.cpp``) of the flow bench.
 """

@@ -17,6 +17,8 @@ JAX module, so the same seed picks the same windows and crops.
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import logging
 import queue
 import threading
@@ -254,6 +256,9 @@ class FlowInMemDataset:
 
     A background thread produces fresh super batches into a bounded queue;
     after each epoch slice one resident super batch is replaced round-robin.
+    The thread runs for the life of the process, as the JAX package's does;
+    at interpreter exit it is let finish the super batch it is building and
+    end, since a thread killed inside a PyTorch call aborts the process.
     """
 
     def __init__(
@@ -285,11 +290,13 @@ class FlowInMemDataset:
         self._queue: Optional[queue.Queue] = None
         if background_refresh:
             self._queue = queue.Queue(maxsize=2)
-            thread = threading.Thread(target=self._producer, daemon=True)
-            thread.start()
+            self._exiting = threading.Event()
+            self._thread = threading.Thread(target=self._producer, daemon=True)
+            self._thread.start()
+            atexit.register(self._end_producer)
 
     def _producer(self):
-        while True:
+        while not self._exiting.is_set():
             try:
                 batch = self.loader.load_super_batch(self.batch_type)
             except Exception as exc:
@@ -299,6 +306,12 @@ class FlowInMemDataset:
                 time.sleep(1.0)
                 continue
             self._queue.put(batch)
+
+    def _end_producer(self):
+        self._exiting.set()
+        with contextlib.suppress(queue.Empty):
+            self._queue.get_nowait()  # frees a put blocked on a full queue
+        self._thread.join()
 
     def _refresh_one(self):
         if self._queue is None:

@@ -5,11 +5,13 @@ a ``SatelliteFlowLoader`` builds super batches on the device (flows and the
 prediction matrix), a ``FlowInMemDataset`` samples 128→64 px crop examples
 from the held-out testing range, and the residual forecaster answers them;
 each answer is scored by SSIM beside the flow-only prediction and
-persistence. Training the forecaster is not part of this module yet: the
-CLI draws the model's weights from a seed, and ``evaluate`` takes any model
-(``convert.flow_forecaster_from_flax`` loads trained flax weights).
+persistence. The CLI draws the model's weights from a seed; ``evaluate``
+takes any model (``train_flow_forecaster.train`` trains one,
+``convert.flow_forecaster_from_flax`` loads trained flax weights). The
+archive is an HRV zarr array (``--zarr``, ``--zarr-member``) or, without
+one, the synthetic archive (``archive``).
 
-    python -m predict_pv_yield_tpu_torch.flow_nowcast --synthetic
+    python -m predict_pv_yield_tpu_torch.flow_nowcast --zarr /path/to/hrv.zarr
     python -m predict_pv_yield_tpu_torch.flow_nowcast --synthetic --device cpu --size 160 \
         --forecast-timesteps 12 --batch-size 4 --n-batches 2
 """
@@ -17,12 +19,13 @@ CLI draws the model's weights from a seed, and ``evaluate`` takes any model
 from __future__ import annotations
 
 import argparse
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from predict_pv_yield_tpu_torch.data.flow_dataset import FlowInMemDataset, SatelliteFlowLoader
+from predict_pv_yield_tpu_torch.data.zarr_reader import open_zarr
 from predict_pv_yield_tpu_torch.models.flow_forecaster import (
     FORECASTER_ARCHITECTURES,
     HISTORICAL_SAT_IMAGES,
@@ -33,18 +36,22 @@ from predict_pv_yield_tpu_torch.ops.ssim import ssim
 from predict_pv_yield_tpu_torch.utils import resolve_device
 
 
-def _resize_bilinear(image: np.ndarray, size: int) -> np.ndarray:
-    """Bilinear upsample of a square (n, n) image to (size, size), half-pixel
-    centres, edges clamped (what ``jax.image.resize(..., "bilinear")`` does
-    when upsampling)."""
-    n = image.shape[0]
+def _linear_taps(n: int, size: int):
     coords = (np.arange(size, dtype=np.float32) + 0.5) * np.float32(n / size) - 0.5
     coords = np.clip(coords, 0.0, n - 1.0)
     lo = np.floor(coords).astype(np.int64)
-    hi = np.minimum(lo + 1, n - 1)
-    w = (coords - lo).astype(np.float32)
-    rows = image[lo] * (1 - w)[:, None] + image[hi] * w[:, None]
-    return rows[:, lo] * (1 - w)[None, :] + rows[:, hi] * w[None, :]
+    return lo, np.minimum(lo + 1, n - 1), (coords - lo).astype(np.float32)
+
+
+def _resize_bilinear(image: np.ndarray, size) -> np.ndarray:
+    """Bilinear upsample of the last two axes of ``image`` to ``size``, an
+    (h, w) pair or an int for a square, half-pixel centres, edges clamped
+    (what ``jax.image.resize(..., "bilinear")`` does when upsampling)."""
+    height, width = size if isinstance(size, tuple) else (size, size)
+    lo, hi, w = _linear_taps(image.shape[-2], height)
+    rows = image[..., lo, :] * (1 - w)[:, None] + image[..., hi, :] * w[:, None]
+    lo, hi, w = _linear_taps(image.shape[-1], width)
+    return rows[..., lo] * (1 - w) + rows[..., hi] * w
 
 
 def synthetic_archive(n_days: int = 2, size: int = 192, seed: int = 0):
@@ -61,19 +68,48 @@ def synthetic_archive(n_days: int = 2, size: int = 192, seed: int = 0):
     return frames, datetimes
 
 
-def drifting_archive(n_days: int = 2, size: int = 256, seed: int = 0):
+def drifting_archive(n_days: int = 2, size=256, seed: int = 0):
     """Temporally coherent int16 frames at a 5-minute cadence →
-    (frames, datetimes): one smooth cloud field drifting 1 px right and
-    0.5 px down per frame, as real HRV imagery moves, with missing-data (−1)
-    holes in a corner of every 7th frame (crops can avoid them)."""
+    (frames, datetimes): one smooth cloud field of ``size`` ((h, w), or an
+    int for a square) drifting 1 px right and 0.5 px down per frame, as real
+    HRV imagery moves, with missing-data (−1) holes in a corner of every 7th
+    frame (crops can avoid them)."""
+    height, width = size if isinstance(size, tuple) else (size, size)
     rng = np.random.default_rng(seed)
     n = n_days * 24 * 12
     datetimes = np.datetime64("2019-05-20T00:00") + np.arange(n) * np.timedelta64(5, "m")
-    coarse = rng.integers(0, 900, size=(size // 16, size // 16)).astype(np.float32)
-    field = _resize_bilinear(coarse, size).astype(np.int16)
+    coarse = rng.integers(0, 900, size=(height // 16, width // 16)).astype(np.float32)
+    field = _resize_bilinear(coarse, (height, width)).astype(np.int16)
     frames = np.stack([np.roll(field, shift=(i // 2, i), axis=(0, 1)) for i in range(n)])
     frames[::7, :8, :16] = -1
     return frames, datetimes
+
+
+def archive(zarr: Optional[str] = None, zarr_member: Optional[str] = None, size: int = 192):
+    """(frames, datetimes, testing_date_range) of the flow CLIs' archive, as
+    the JAX package's ``tools/train_flow_forecaster.py`` chooses it.
+
+    With ``zarr``, the lazy HRV array at that path (``zarr_member`` picks
+    an array of a group) read by ``open_zarr``; its frames are taken to start
+    at 2019-01-01T00:00 at a 5-minute cadence, and 1–14 June 2019 is held
+    out for testing (an archive shorter than that has no testing window, and
+    evaluation raises ``no valid start times for testing``). Without it, the
+    synthetic archive of ``size`` px, testing on 21 May 2019.
+    """
+    if zarr is None:
+        frames, datetimes = synthetic_archive(size=size)
+        return frames, datetimes, (np.datetime64("2019-05-21"), np.datetime64("2019-05-22"))
+    frames = open_zarr(zarr, zarr_member)
+    datetimes = np.datetime64("2019-01-01T00:00") + np.arange(frames.shape[0]) * np.timedelta64(5, "m")
+    return frames, datetimes, (np.datetime64("2019-06-01"), np.datetime64("2019-06-14"))
+
+
+def add_archive_arguments(parser: argparse.ArgumentParser) -> None:
+    """The JAX tool's archive flags: ``--zarr``, ``--zarr-member``,
+    ``--synthetic`` (the synthetic archive is also taken without ``--zarr``)."""
+    parser.add_argument("--zarr", help="HRV satellite zarr array path")
+    parser.add_argument("--zarr-member", default=None, help="array within a zarr group")
+    parser.add_argument("--synthetic", action="store_true")
 
 
 @torch.no_grad()
@@ -121,8 +157,7 @@ def evaluate(
 
 def main(argv=None) -> Dict[str, float]:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--synthetic", action="store_true",
-                        help="use the synthetic archive (the only source so far)")
+    add_archive_arguments(parser)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--size", type=int, default=192, help="synthetic frame size")
     parser.add_argument("--batch-size", type=int, default=32)
@@ -132,16 +167,14 @@ def main(argv=None) -> Dict[str, float]:
                         help="conv width (default: the source notebook's value)")
     parser.add_argument("--forecast-timesteps", type=int, default=48)
     args = parser.parse_args(argv)
-    if not args.synthetic:
-        parser.error("only --synthetic is supported: the zarr reader is not ported yet")
 
     device = resolve_device(args.device)
-    frames, datetimes = synthetic_archive(size=args.size)
+    frames, datetimes, testing = archive(None if args.synthetic else args.zarr, args.zarr_member, args.size)
     loader = SatelliteFlowLoader(
         data=frames,
         datetimes=datetimes,
         num_forecast_timesteps=args.forecast_timesteps,
-        testing_date_range=(np.datetime64("2019-05-21"), np.datetime64("2019-05-22")),
+        testing_date_range=testing,
         device=device,
     )
     model_cls = FORECASTER_ARCHITECTURES[args.arch]

@@ -42,6 +42,13 @@ def remap_image(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return remap_batched(image[None], flow[None])[0]
 
 
+#: pixels warped per ``remap_batched`` call of ``flow_predictions``: its
+#: eager temporaries (coordinates, int64 gather indices, gathered corners)
+#: take ~60 bytes a pixel, so one call over a 704×548 super batch's
+#: 48 × 48 warps would want ~53 GB beside the 3.6 GB result
+PREDICTION_CHUNK_PIXELS = 1 << 25
+
+
 def flow_predictions(sat_data: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
     """The prediction matrix.
 
@@ -54,19 +61,25 @@ def flow_predictions(sat_data: torch.Tensor, flows: torch.Tensor) -> torch.Tenso
         ``flows[i] * (s+1)`` — the prediction for timestep ``i + s + 1``.
         Entries with ``i + s + 1 >= T`` have no ground truth; consumers
         index the triangle ``s < T - 1 - i``.
+
+    The warps are computed a few source frames at a time (at most
+    ``PREDICTION_CHUNK_PIXELS`` pixels a call, at least one source frame);
+    each pixel's arithmetic is the same whatever the chunk.
     """
     num_flows = flows.shape[0]
     height, width = sat_data.shape[1:]
     steps = torch.arange(1, num_flows + 1, dtype=torch.float32, device=flows.device)
-    sources = (
-        sat_data[:-1, None]
-        .expand(num_flows, num_flows, height, width)
-        .reshape(num_flows * num_flows, height, width)
-    )
-    scaled_flows = (flows[:, None] * steps[None, :, None, None, None]).reshape(
-        num_flows * num_flows, height, width, 2
-    )
-    return remap_batched(sources, scaled_flows).reshape(num_flows, num_flows, height, width)
+    out = torch.empty((num_flows, num_flows, height, width), dtype=sat_data.dtype, device=sat_data.device)
+    per_call = max(1, PREDICTION_CHUNK_PIXELS // (num_flows * height * width))
+    for first in range(0, num_flows, per_call):
+        chunk = slice(first, min(first + per_call, num_flows))
+        n = chunk.stop - chunk.start
+        sources = sat_data[chunk, None].expand(n, num_flows, height, width).reshape(n * num_flows, height, width)
+        scaled_flows = (flows[chunk, None] * steps[None, :, None, None, None]).reshape(
+            n * num_flows, height, width, 2
+        )
+        out[chunk] = remap_batched(sources, scaled_flows).reshape(n, num_flows, height, width)
+    return out
 
 
 def weighted_average_flow(flows: torch.Tensor) -> torch.Tensor:

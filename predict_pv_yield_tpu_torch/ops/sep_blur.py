@@ -17,12 +17,14 @@ about it.
 ``sep_blur`` launches that kernel for a CUDA tensor and uses the plain
 version ``sep_blur_reference`` only for a tensor on the CPU. ``launches``
 counts kernel launches, so a run can show that its path went through the
-kernel.
+kernel; it is bumped under a lock, since the flow dataset's producer thread
+launches the kernel beside the main thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from predict_pv_yield_tpu_torch.utils import full_fp32
 
 #: kernel launches since the counter was last reset (set it to 0 to reset)
 launches = 0
+_launches_lock = threading.Lock()
 
 #: the kernel's tap limit (radius <= 32); ``kMaxTaps`` in csrc/sep_blur.cu
 MAX_TAPS = 65
@@ -72,7 +75,6 @@ def sep_blur(fields: torch.Tensor, taps) -> torch.Tensor:
     A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
     through ``sep_blur_reference``.
     """
-    global launches
     taps = _check(fields, taps)
     if fields.device.type == "cpu":
         return sep_blur_reference(fields, taps)
@@ -92,8 +94,16 @@ def sep_blur(fields: torch.Tensor, taps) -> torch.Tensor:
         raise RuntimeError(
             f"sep_blur kernel launch failed: {lib.sep_blur_error_string(err).decode()}"
         )
-    launches += 1
+    _count_launch()
     return out
+
+
+def _count_launch() -> None:
+    """Add one to ``launches``: a read-modify-write, so under a lock (two
+    threads launch the kernel while a flow model trains)."""
+    global launches
+    with _launches_lock:
+        launches += 1
 
 
 def _library() -> ctypes.CDLL:

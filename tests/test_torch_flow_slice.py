@@ -22,7 +22,7 @@ import predict_pv_yield_tpu.models.flow_forecaster as jff
 import predict_pv_yield_tpu.ops.ssim as jssim
 import predict_pv_yield_tpu_torch.data.flow_dataset as tfd
 import predict_pv_yield_tpu_torch.models.flow_forecaster as tff
-from predict_pv_yield_tpu_torch import flow_nowcast
+from predict_pv_yield_tpu_torch import flow_bench, flow_nowcast, train_flow_forecaster
 from predict_pv_yield_tpu_torch.convert import flow_forecaster_from_flax
 from predict_pv_yield_tpu_torch.ops.ssim import ssim
 
@@ -328,3 +328,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tfd.SatelliteFlowLoader(data=frames, datetimes=datetimes)
     with pytest.raises(RuntimeError, match="CUDA"):
         flow_nowcast.main(["--synthetic", "--size", "32"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_flow_forecaster.main(["--synthetic"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flow_bench.main()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flow_bench.sweep()

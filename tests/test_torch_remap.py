@@ -97,3 +97,15 @@ def test_ssim_batched_per_example_range():
         for a, b, s in zip(im1, im2, spans)
     ]
     np.testing.assert_allclose(actual.numpy(), expected, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("sources_per_call", [1, 3])
+def test_flow_predictions_in_chunks(monkeypatch, sources_per_call):
+    """Warped a few source frames a call (as at the production extent), the
+    prediction matrix is still the JAX package's."""
+    frames = _images((5, 18, 20), 4)
+    flows = _flows((4, 18, 20, 2), 5, scale=1.5)
+    monkeypatch.setattr(tremap, "PREDICTION_CHUNK_PIXELS", sources_per_call * 4 * 18 * 20)
+    expected = np.asarray(jremap.flow_predictions(jnp.asarray(frames), jnp.asarray(flows)))
+    actual = tremap.flow_predictions(torch.from_numpy(frames), torch.from_numpy(flows)).numpy()
+    _assert_same_nan_and_values(actual, expected)

@@ -7,6 +7,8 @@ interpreter, on the same numpy inputs.
 """
 
 import functools
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -99,6 +101,51 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     out = port.sep_blur(fields, _taps(3, True))
     assert port.launches == before
     torch.testing.assert_close(out, port.sep_blur_reference(fields, _taps(3, True)), rtol=0, atol=0)
+
+
+class _SlowInt(int):
+    """An int whose ``+`` sleeps, which widens the gap between a counter's
+    read and its write so that threads interleave inside it."""
+
+    def __add__(self, other):
+        time.sleep(1e-3)
+        return _SlowInt(int(self) + other)
+
+
+def _bump_from_threads(bump, n_threads=8, calls=20):
+    """``bump`` called ``calls`` times on each of ``n_threads`` threads that
+    start together."""
+    barrier = threading.Barrier(n_threads)
+
+    def run():
+        barrier.wait()
+        for _ in range(calls):
+            bump()
+
+    threads = [threading.Thread(target=run) for _ in range(n_threads)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=60)
+    assert not any(thread.is_alive() for thread in threads)
+    return n_threads * calls
+
+
+def test_launch_counter_is_exact_under_concurrent_threads(monkeypatch):
+    """The flow dataset's producer thread and the main thread both launch
+    the kernel. With the read and the write of the count held apart, a bare
+    read-modify-write loses counts, and ``_count_launch`` loses none."""
+
+    def unlocked():
+        port.launches += 1
+
+    monkeypatch.setattr(port, "launches", _SlowInt(0))
+    calls = _bump_from_threads(unlocked)
+    assert port.launches < calls
+
+    monkeypatch.setattr(port, "launches", _SlowInt(0))
+    calls = _bump_from_threads(port._count_launch)
+    assert port.launches == calls
 
 
 @pytest.mark.parametrize(
