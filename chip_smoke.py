@@ -3,8 +3,9 @@ conv3d_sat_nwp serve and train paths, the data path that feeds them, the
 perceiver family, the rest of the single-device zoo with bf16, the on-disk
 formats (NetCDF, blosc/LZ4, remote stores, the prepare step), the
 Trainer's knobs (CUDA graphs of k steps, lr_find, the float16 wire,
-overfit/reload, loggers, plots, debug_nans, the device trace) and the flow
-forecaster's training with the flow bench.
+overfit/reload, loggers, plots, debug_nans, the device trace), the flow
+forecaster's training with the flow bench, and several ranks (data and
+tensor parallelism, the sharded flow).
 
     python3 chip_smoke.py
 
@@ -168,10 +169,34 @@ Phases (any failure exits non-zero):
      losses; (d) ``flow_bench.main()`` three times (the best headline
      within 20 % of the best of phase 3's rate, measured again in turns with
      it; a positive host single-core rate) and ``flow_bench.sweep()``;
- 14. the ``kernels`` line, then the result line.
+ 14. parallel: (a) a ``ModelCheckpoint`` directory written by a short fit at
+     phase 7's geometry, served by ``predict.main --checkpoint`` and by
+     ``Trainer.predict``, each within 1e-4 · max |y| of ``predict.predict``
+     on the trained model, and the seed-0 model's forecasts differing; the
+     partitioned perceiver.yaml (``partition_attention=True``) one step card
+     vs CPU under phase 9's rules; then a NCCL group of one rank on a free
+     port: (b) conv3d_sat_nwp.yaml fp32, batch 32, 24 steps at k = 1 and 8
+     bit-equal to the same fits without a process group and the k = 8
+     replays bit-equal to the eager steps (deterministic algorithms), the
+     48-step rates beside phase 12's, the NCCL kernels' device time a step
+     from a trace held to ``TRACE_COVERAGE``; (c) perceiver.yaml partitioned
+     by the trainer over its model group of one: its feed-forward shards
+     what ``split_geglu_params`` makes of the fused weights, the forward
+     within 1e-4 · max |y| of the fused model from the same seed, the bf16
+     rate at k = 8 beside phase 12's, ``model_parallel=2`` raising
+     ``ValueError``; ``flow_sequence_sharded`` at world size 1 against
+     ``flow_sequence``; (d) two processes on ``cuda:0`` over gloo at small
+     widths and k = 1: the data-parallel step against the one-rank step on
+     the same global batch (phase 7's one-step tolerances), the
+     tensor-parallel fit (model 2) against the unpartitioned fit (the JAX
+     package's TP tolerances), ``flow_sequence_sharded`` within 1e-5 px of
+     ``flow_sequence`` with ``sep_blur`` launching on both ranks. World size
+     1 and two ranks sharing one card measure no scaling;
+ 15. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
-path (phases 3, 4 and 13 (b)) and read just after; the serve, train, data,
+path (phases 3, 4, 13 (b), 14's world-1 flow and each of 14 (d)'s ranks)
+and read just after; the serve, train, data,
 perceiver, zoo, formats and Trainer paths run no hand kernel (the JAX
 package computes them with XLA, outside any Pallas kernel; attention is
 PyTorch's ``scaled_dot_product_attention``; the LZ4 codec is host code; a
@@ -228,6 +253,7 @@ CONV3D_SAT_NWP = {
     "include_pv_yield_history": False,
     "include_future_satellite": True,
 }
+CONV3D_SAT_NWP_YAML = "configs/model/conv3d_sat_nwp.yaml"
 #: the satellite channels of the predict tool's fake data for that YAML
 CONV3D_SAT_NWP_CHANNELS = ("IR_016", "IR_039", "IR_087", "IR_097", "IR_108", "IR_120",
                            "IR_134", "VIS006", "VIS008", "WV_062", "WV_073")
@@ -3765,11 +3791,410 @@ def phase_flow_train(device, headline_frames, headline_rate, flops_peak):
     return results
 
 
+# --- phase 14: parallel ------------------------------------------------------
+
+#: (d): the two ranks' small geometry — the data-parallel model and batch of
+#: tests/test_torch_distributed.py, the tensor-parallel perceiver of
+#: tests/test_torch_tensor_parallel.py, and 4 frame pairs at 256² (2 a rank)
+PARALLEL_DP_MODEL = dict(forecast_minutes=60, history_minutes=30, number_of_conv3d_layers=2, conv3d_channels=8,
+                         image_size_pixels=12, nwp_image_size_pixels=12, number_sat_channels=11,
+                         number_nwp_channels=10, fc1_output_features=16, fc2_output_features=16,
+                         fc3_output_features=16, output_variable="gsp_yield", include_pv_yield_history=True,
+                         include_future_satellite=True)
+PARALLEL_DP_BATCH = 8
+PARALLEL_TP_MODEL = dict(history_minutes=30, forecast_minutes=60, embedding_dem=16, num_latents=8, latent_dim=8)
+PARALLEL_FRAMES = (5, 256, 256)
+#: the JAX package's tensor-parallel tolerances (tests/test_tensor_parallel.py:92-105)
+TP_NMAE_TOL, TP_PARAM_TOL = 1e-5, 3e-4
+FLOW_SHARD_TOL = 1e-5  # px: the sharded flow against the one-rank flow
+PARALLEL_WORKER_TIMEOUT = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _max_diff(got, want) -> float:
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in zip(got, want))
+
+
+def _parallel_serve(device, tmp):
+    """(a) a checkpoint the port's trainer writes at phase 7's
+    geometry, served by ``predict.main --checkpoint`` and by
+    ``Trainer.predict``, against ``predict.predict`` of the trained model."""
+    import os
+
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
+    from predict_pv_yield_tpu_torch.training.callbacks import ModelCheckpoint
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    dataset = FakeDataset(model_configuration(_flagship()), length=3)
+    batches = [dataset[i] for i in range(3)]
+    ckpt = ModelCheckpoint(dirpath=os.path.join(tmp, "ck"))
+    trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None, callbacks=[ckpt])
+    trainer.fit(_flagship(), train_dataloaders=batches[:2], val_dataloaders=batches[2:])
+    check(os.path.exists(os.path.join(ckpt.best_model_path, "state.pt")), "no checkpoint directory was written")
+    loader = serve.fake_loader(trainer._model, 2)
+    expected = serve.predict(trainer._model, loader, device)
+    scale = max(float(np.abs(y).max()) for y in expected)
+    yaml_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), CONV3D_SAT_NWP_YAML)
+    served = serve.main(["--model", "conv3d_sat_nwp", "--model-config", yaml_path, "--checkpoint",
+                         ckpt.best_model_path, "--n-batches", "2", "--out", os.path.join(tmp, "forecasts.csv"),
+                         "--device", str(device)])
+    resumed = Trainer(device=device, profiler=None, weights_summary=None, resume_from_checkpoint=ckpt.best_model_path)
+    predicted = resumed.predict(_flagship(), dataloaders=loader)
+    fresh = serve.predict(serve.build_model("conv3d_sat_nwp", CONV3D_SAT_NWP, seed=0), loader, device)
+    diffs = {"main": _max_diff(served["predictions"], expected), "trainer_predict": _max_diff(predicted, expected),
+             "seed0": _max_diff(fresh, expected)}
+    log(f"[parallel] (a) a ModelCheckpoint directory of conv3d_sat_nwp.yaml (2 train + 1 validation batches of 32) "
+        f"served over 2 fake batches: predict.main --checkpoint max |Δ| {diffs['main']:.3e}, Trainer.predict "
+        f"{diffs['trainer_predict']:.3e} against predict.predict of the trained model (limit "
+        f"{SERVE_TOL:.0e} x max |y| = {SERVE_TOL * scale:.3e}); the seed-0 model differs by {diffs['seed0']:.3e}; "
+        f"{served['rows']} CSV rows")
+    check(diffs["main"] <= SERVE_TOL * scale and diffs["trainer_predict"] <= SERVE_TOL * scale,
+          "a served checkpoint's forecasts disagree with the trained model's")
+    check(diffs["seed0"] > SERVE_TOL * scale, "the seed-0 model forecasts what the trained one does")
+    return diffs
+
+
+def _dp_fits(device, unique, k_values, steps, **kwargs):
+    """conv3d_sat_nwp.yaml fits at each ``steps_per_execution`` of
+    ``k_values`` on ``steps`` rotated batches → {k: (trainer, seconds,
+    rate, gaps, every step's NMAE)}."""
+    return {k: _fit_k(device, _flagship, _rotated(unique, steps), k, 32, 1, 32, **kwargs) for k in k_values}
+
+
+def _parallel_dp(device, unique, alone, graphs):
+    """(b) data parallelism over NCCL at world size 1 (the process group is
+    up): 24 steps at k = 1 and 8 bit-equal to ``alone`` (the same fits
+    without a process group) and to each other, the rates of 48-step fits
+    beside phase 12's, and the NCCL kernels' device time per step."""
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    with _deterministic():
+        joined = _dp_fits(device, unique, (1, GRAPH_K), GRAPH_EQUAL_TRAIN)
+    checks = {}
+    for k in (1, GRAPH_K):
+        equal, params, _ = _state_diff(alone[k][0], joined[k][0])
+        checks[f"k{k}_vs_no_group"] = equal and torch.equal(alone[k][4], joined[k][4])
+        check(joined[k][0]._data_group is not None, "the world-1 fit built no data group")
+    _, replayed = _graph_equality((joined[1][0], joined[1][4]), (joined[GRAPH_K][0], joined[GRAPH_K][4]))
+    checks["k8_replays_vs_eager"] = replayed["bit_equal"]
+    log(f"[parallel] (b) conv3d_sat_nwp.yaml fp32, batch 32, NCCL at world size 1: {GRAPH_EQUAL_TRAIN} steps at k=1 "
+        f"and k={GRAPH_K} ({len(joined[GRAPH_K][0]._graphs)} CUDA graph(s), the gradient all_reduce captured) "
+        f"against the same fits without a process group, deterministic algorithms: bit-equal "
+        f"{checks['k1_vs_no_group']} / {checks[f'k{GRAPH_K}_vs_no_group']}; the k={GRAPH_K} replays against the "
+        f"k=1 steps: bit-equal {checks['k8_replays_vs_eager']}")
+    check(all(checks.values()), f"data parallelism at world size 1 is not exact: {checks}")
+    del joined, alone
+    rates = _dp_fits(device, unique, (1, GRAPH_K), GRAPH_TRAIN)
+    numbers = {f"k{k}_rate": rates[k][2] for k in rates}
+    # the NCCL kernels of one step, from a warmed trace held to the CUDA events' time
+    trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None)
+    trainer.setup(_flagship())
+    card = unique[0].numeric().to(device)
+    step_ms, evented_ms, events = _traced_step_ms(lambda: trainer.train_step(card))
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    calls = PERCEIVER_TRACED_CALLS
+    numbers.update(step_ms=step_ms, nccl_ms=sum(e.self_device_time_total for e in nccl) / calls / 1e3,
+                   nccl_launches=sum(e.count for e in nccl) / calls)
+    log(f"[parallel] (b) {GRAPH_TRAIN} steps, default algorithms: steady train examples/s k=1 {numbers['k1_rate']:.2f}, "
+        f"k={GRAPH_K} {numbers[f'k{GRAPH_K}_rate']:.2f} (phase 12 without a process group: "
+        f"{graphs['k1_rate']:.2f}, {graphs[f'k{GRAPH_K}_rate']:.2f}); one step {step_ms:.4f} ms traced "
+        f"({evented_ms:.4f} ms of CUDA events), NCCL kernels {numbers['nccl_ms']:.4f} ms in "
+        f"{numbers['nccl_launches']:.1f} launches a step"
+        + "".join(f"; {e.self_device_time_total / calls / 1e3:.4f} ms x{e.count // calls} {e.key[:70]}"
+                  for e in nccl[:3]))
+    del rates, trainer, card
+    torch.cuda.empty_cache()
+    return {**checks, **numbers}
+
+
+def _split_geglu_matches(encoder, fused) -> bool:
+    """Each feed-forward shard of the partitioned ``encoder`` holds what the
+    JAX package's ``split_geglu_params`` makes of the fused encoder's
+    in-projection (through the port's numpy copy, on a flax-layout view)."""
+    from predict_pv_yield_tpu_torch.convert import split_geglu_params
+
+    def distinct(model):
+        return list({id(layer): layer for layer in model.layers}.values())
+
+    for block, fused_block in zip(distinct(encoder), distinct(fused)):
+        pairs = [(block[1].fn, fused_block[1].fn)] + [(b[1].fn, f[1].fn) for b, f in zip(block[2], fused_block[2])]
+        for shard, whole in pairs:
+            first, last = whole.net[0], whole.net[2]
+            tree = {"in": {"kernel": first.weight.detach().cpu().numpy().T, "bias": first.bias.detach().cpu().numpy()},
+                    "out": {"kernel": last.weight.detach().cpu().numpy().T}}
+            split = split_geglu_params({"ff": tree})["ff"]
+            for name in ("in_value", "in_gate"):
+                layer = getattr(shard, name)
+                if not (np.array_equal(split[name]["kernel"].T, layer.weight.detach().cpu().numpy())
+                        and np.array_equal(split[name]["bias"], layer.bias.detach().cpu().numpy())):
+                    return False
+    return True
+
+
+def _parallel_tp(device, graphs):
+    """(c) tensor parallelism at world size 1 (the NCCL group is up):
+    perceiver.yaml at full width with ``partition_attention=True`` and
+    ``model_parallel=1`` set up by the trainer from seed 0 against the fused
+    model from seed 0, the bf16 rate at k = 8 beside phase 12's, and
+    ``model_parallel=2`` raising in this one process."""
+    from predict_pv_yield_tpu_torch import predict as serve
+    from predict_pv_yield_tpu_torch.models.layers import init_parameters
+    from predict_pv_yield_tpu_torch.models.perceiver import PerceiverModel
+    from predict_pv_yield_tpu_torch.models.perceiver_core import ShardedAttention
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    kwargs = {k: v for k, v in PERCEIVERS["perceiver"].items() if k != "_target_"}
+    unique = list(serve.fake_loader(serve.build_model("perceiver", PERCEIVERS["perceiver"]), TRAIN_UNIQUE))
+    trainer = Trainer(device=device, profiler=None, weights_summary=None, model_parallel=1)
+    trainer.setup(PerceiverModel(**kwargs, partition_attention=True))
+    encoder = trainer._model.perceiver
+    check(trainer._partitioned and isinstance(encoder.layers[0][0].fn, ShardedAttention)
+          and trainer._model_group is not None, "the trainer did not partition the encoder over its model group")
+    fused = PerceiverModel(**kwargs)
+    init_parameters(fused, torch.Generator().manual_seed(0))
+    split = _split_geglu_matches(encoder, fused.perceiver)
+    check(split, "the partitioned feed-forwards do not hold split_geglu_params' split of the fused weights")
+    batches = unique[:2]
+    got = serve.predict(trainer._model, batches, device)
+    want = serve.predict(fused, batches, device)
+    scale = max(float(np.abs(y).max()) for y in want)
+    diff = _max_diff(got, want)
+    log(f"[parallel] (c) perceiver.yaml, partition_attention=True, model_parallel=1 over the NCCL model group: "
+        f"feed-forward shards equal split_geglu_params of the fused weights {split}; forward over 2 batches of 8 "
+        f"against the fused model from the same seed, fp32: max |Δ| {diff:.3e} (limit {SERVE_TOL:.0e} x max |y| "
+        f"= {SERVE_TOL * scale:.3e})")
+    check(diff <= SERVE_TOL * scale, "the partitioned perceiver's forward disagrees with the fused one's")
+    del trainer, fused, encoder
+    fit, seconds, rate, gaps, _ = _fit_k(device, lambda: PerceiverModel(**kwargs, partition_attention=True),
+                                         _rotated(unique, GRAPH_TRAIN), GRAPH_K, 16, 1, kwargs["batch_size"])
+    log(f"[parallel] (c) the partitioned perceiver.yaml in bf16 at k={GRAPH_K}, {GRAPH_TRAIN} steps: steady train "
+        f"examples/s {rate:.2f} (median of {gaps} group gaps; phase 12's unpartitioned perceiver "
+        f"{graphs[f'k{GRAPH_K}_rate']:.2f}); {len(fit._graphs)} CUDA graph(s), {seconds:.2f} s")
+    del fit
+    try:
+        Trainer(device=device, model_parallel=2)
+        raised = False
+    except ValueError as error:
+        raised = "does not fit" in str(error)
+    check(raised, "model_parallel=2 in one process did not raise ValueError")
+    log("[parallel] (c) Trainer(model_parallel=2) in this one process raises ValueError (does not fit)")
+    torch.cuda.empty_cache()
+    return {"forward_diff": diff, "split_geglu": split, "bf16_k8_rate": rate}
+
+
+def _parallel_flow(device, frames):
+    """The sharded flow at world size 1 (one NCCL rank computes every pair,
+    then the gather): equal to ``flow_sequence``, its ``sep_blur``
+    launches counted."""
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+    from predict_pv_yield_tpu_torch.ops.optical_flow import flow_sequence, flow_sequence_sharded
+
+    expected = flow_sequence(frames)
+    blur.launches = 0
+    flows = flow_sequence_sharded(frames)
+    launches = blur.launches  # counted on the host, at each launch
+    diff = float((flows - expected).abs().max())
+    log(f"[parallel] flow_sequence_sharded at world size 1 over NCCL, {frames.shape[0]}x{frames.shape[1]}x"
+        f"{frames.shape[2]}: max |Δ| {diff:.3e} px against flow_sequence (limit {FLOW_SHARD_TOL}); sep_blur "
+        f"launched {launches} times")
+    check(diff <= FLOW_SHARD_TOL, "the sharded flow disagrees with flow_sequence")
+    check(launches > 0, "the sharded flow launched no sep_blur")
+    return {"flow_world1_diff": diff, "flow_world1_launches": launches}
+
+
+def _tp_dataset():
+    from predict_pv_yield_tpu_torch.config.dataset import Configuration
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset
+
+    configuration = Configuration()
+    configuration.process.batch_size = 2
+    configuration.input_data = configuration.input_data.set_all_to_defaults()
+    configuration.input_data.nwp.nwp_image_size_pixels = 8
+    configuration.input_data.satellite.satellite_image_size_pixels = 8
+    configuration.input_data.nwp.nwp_channels = configuration.input_data.nwp.nwp_channels[:10]
+    return FakeDataset(configuration=configuration, length=2)
+
+
+def _tp_model(partition_attention):
+    from predict_pv_yield_tpu_torch.models.perceiver import PerceiverModel
+
+    model = PerceiverModel(**PARALLEL_TP_MODEL, partition_attention=partition_attention)
+    model.match_configuration(_tp_dataset().configuration)
+    return model
+
+
+def _dp_batch():
+    from predict_pv_yield_tpu_torch.config.dataset import Configuration
+    from predict_pv_yield_tpu_torch.data.fake import fake_batch
+
+    configuration = Configuration()
+    configuration.process.batch_size = PARALLEL_DP_BATCH
+    configuration.input_data.default_history_minutes = 30
+    configuration.input_data.default_forecast_minutes = 60
+    configuration.input_data = configuration.input_data.set_all_to_defaults()
+    configuration.input_data.satellite.satellite_image_size_pixels = 12
+    configuration.input_data.nwp.nwp_image_size_pixels = 12
+    return fake_batch(configuration, np.random.default_rng(0))
+
+
+def _parallel_rank_work(device, rows=slice(None)):
+    """What each of (d)'s ranks does (or one process, with every row): one
+    data-parallel step of the small conv3d_sat_nwp on its rows of the
+    global batch, a fit of two steps of the small perceiver over the model
+    group, and the flow of the frame pairs → numbers and tensors on the CPU."""
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+    from predict_pv_yield_tpu_torch.ops.optical_flow import flow_sequence_sharded
+    from predict_pv_yield_tpu_torch.parallel.mesh import world
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    batch = _dp_batch().map(lambda name, x: x[rows])
+    trainer = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None)
+    trainer.setup(Model(**PARALLEL_DP_MODEL))
+    nmae = float(trainer._data_mean(trainer.train_step(batch.numeric().to(device))["NMAE"]))
+    params = {k: v.cpu() for k, v in trainer._model.state_dict().items()}
+    tp = Trainer(max_epochs=1, device=device, profiler=None, weights_summary=None, model_parallel=world()[0])
+    metrics = tp.fit(_tp_model(world()[0] > 1), train_dataloaders=_tp_dataset())
+    full = {k: v.cpu() for k, v in tp.state["model"].items()}
+    frames = torch.from_numpy(np.random.default_rng(7).uniform(0, 255, PARALLEL_FRAMES).astype(np.float32)).to(device)
+    blur.launches = 0
+    flows = flow_sequence_sharded(frames)
+    return {"dp_nmae": nmae, "dp_params": params, "tp_nmae": metrics["NMAE/Train_epoch"], "tp_params": full,
+            "flows": flows.cpu(), "launches": blur.launches}
+
+
+def parallel_worker(rank: int, port: int, out: str) -> None:
+    """One of (d)'s two ranks on ``cuda:0``: gloo (NCCL refuses two ranks on
+    one device; gloo stages CUDA tensors through host memory)."""
+    import os
+
+    import torch.distributed as dist
+
+    from predict_pv_yield_tpu_torch.parallel.distributed import host_local_batch_slice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+    try:
+        result = _parallel_rank_work(torch.device("cuda", 0), host_local_batch_slice(PARALLEL_DP_BATCH))
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_two_ranks(device, tmp):
+    """(d) two processes on the one card over gloo, at small widths and
+    k = 1, held to the one process's work: the data-parallel step to phase
+    7's one-step tolerances, the tensor-parallel fit to the JAX package's,
+    the sharded flow to 1e-5 px with ``sep_blur`` launching on both ranks."""
+    import os
+
+    reference = _parallel_rank_work(device)
+    port = _free_port()
+    start = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(rank), str(port),
+                               tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    try:
+        outputs = [proc.communicate(timeout=PARALLEL_WORKER_TIMEOUT)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for rank, (proc, output) in enumerate(zip(procs, outputs)):
+        check(proc.returncode == 0, f"(d) rank {rank} failed (rc {proc.returncode}):\n{output[-3000:]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{rank}.pt"), weights_only=False) for rank in range(2)]
+    seconds = time.perf_counter() - start
+    out = {"seconds": seconds, "launches": [r["launches"] for r in ranks]}
+    for name, result in enumerate(ranks):
+        dp_params = max(float((result["dp_params"][k] - v).abs().max()) for k, v in reference["dp_params"].items())
+        over = sum(int(((result["dp_params"][k] - v).abs() > 5e-5).sum()) for k, v in reference["dp_params"].items())
+        tp_params = max(float((result["tp_params"][k] - v).abs().max()) for k, v in reference["tp_params"].items())
+        flows = float((result["flows"] - reference["flows"]).abs().max())
+        out[f"rank{name}"] = {"dp_nmae": abs(result["dp_nmae"] - reference["dp_nmae"]), "dp_params": dp_params,
+                              "dp_over_5e-5": over, "tp_nmae": abs(result["tp_nmae"] - reference["tp_nmae"]),
+                              "tp_params": tp_params, "flows": flows}
+    log(f"[parallel] (d) two ranks on cuda:0 over gloo ({seconds:.2f} s with their start): "
+        + "; ".join(f"rank {r}: data-parallel step NMAE |Δ| {v['dp_nmae']:.3e} (limit {STEP_LOSS_TOL}), parameters "
+                    f"{v['dp_params']:.3e} (limit {STEP_PARAM_TOL}; {v['dp_over_5e-5']} above 5e-5), "
+                    f"tensor-parallel fit NMAE |Δ| {v['tp_nmae']:.3e} (limit {TP_NMAE_TOL}), parameters "
+                    f"{v['tp_params']:.3e} (limit {TP_PARAM_TOL}), sharded flow {v['flows']:.3e} px "
+                    f"(limit {FLOW_SHARD_TOL}), sep_blur launched {out['launches'][r]} times"
+                    for r, v in ((r, out[f"rank{r}"]) for r in range(2))))
+    check(all(out[f"rank{r}"]["dp_nmae"] <= STEP_LOSS_TOL and out[f"rank{r}"]["dp_params"] <= STEP_PARAM_TOL
+              for r in range(2)), "the two-rank data-parallel step disagrees with the one-rank step")
+    check(all(out[f"rank{r}"]["tp_nmae"] <= TP_NMAE_TOL and out[f"rank{r}"]["tp_params"] <= TP_PARAM_TOL
+              for r in range(2)), "the two-rank tensor-parallel fit disagrees with the unpartitioned fit")
+    check(all(out[f"rank{r}"]["flows"] <= FLOW_SHARD_TOL for r in range(2)), "the two-rank flow disagrees")
+    check(all(n > 0 for n in out["launches"]), "sep_blur did not launch on both ranks")
+    return out
+
+
+def phase_parallel(device, frames, trainer_results):
+    """Phase 14: F2 and ``Trainer.predict``, data parallelism over NCCL at
+    world size 1, the partitioned perceiver at world size 1, the sharded
+    flow, and two ranks on the one card over gloo."""
+    import os
+
+    import torch.distributed as dist
+
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
+    from predict_pv_yield_tpu_torch.models.perceiver import PerceiverModel
+    from predict_pv_yield_tpu_torch.parallel.distributed import initialize_distributed
+
+    start = time.perf_counter()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            results["serve"] = _parallel_serve(device, tmp)
+        finally:
+            os.chdir(cwd)
+    # before the process group: the one-step rules of the partitioned
+    # perceiver (its CPU side cannot join a NCCL group) and the fits alone
+    kwargs = {k: v for k, v in PERCEIVERS["perceiver"].items() if k != "_target_"}
+    results["tp_step"] = _train_parity(
+        device, lambda: PerceiverModel(**{**kwargs, "batch_size": PERCEIVER_PARITY_BATCH, "partition_attention": True}),
+        "parallel (c), the partitioned perceiver.yaml")
+    dataset = FakeDataset(model_configuration(_flagship()), length=TRAIN_UNIQUE)
+    unique = [dataset[i] for i in range(TRAIN_UNIQUE)]  # phase 7's batches, from the same seed
+    with _deterministic():
+        alone = _dp_fits(device, unique, (1, GRAPH_K), GRAPH_EQUAL_TRAIN)
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device=device)
+    try:
+        check(dist.get_backend() == "nccl", f"the world-1 group runs {dist.get_backend()}, not NCCL")
+        results["dp"] = _parallel_dp(device, unique, alone, trainer_results["graphs"]["conv3d_sat_nwp_fp32"])
+        del alone
+        results["tp"] = _parallel_tp(device, trainer_results["graphs"]["perceiver_bf16"])
+        results.update(_parallel_flow(device, frames))
+    finally:
+        dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        results["two_ranks"] = _parallel_two_ranks(device, tmp)
+    results["seconds"] = time.perf_counter() - start
+    log(f"[parallel] phase 14: {results['seconds']:.2f} s; world size 1 and two ranks sharing one card measure no "
+        f"scaling")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase 14 (d)'s two ranks
+        parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     # TF32 off for matmul and cuDNN: every comparison below is in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3800,6 +4225,7 @@ def main() -> int:
         formats, tree = phase_formats(device, trained, data, tmp)
         trainer = phase_trainer(device, tree)
     flow_train = phase_flow_train(device, headline_frames, headline_rate, flops_peak)
+    parallel = phase_parallel(device, headline_frames, trainer)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -3810,7 +4236,8 @@ def main() -> int:
         "route": "cuda",
         "source": "predict_pv_yield_tpu_torch/csrc/sep_blur.cu",
         "replaces": "predict_pv_yield_tpu/ops/pallas_blur.py:103",
-        "launches": load_launches + request_launches + flow_train["launches"],
+        "launches": (load_launches + request_launches + flow_train["launches"] + parallel["flow_world1_launches"]
+                     + sum(parallel["two_ranks"]["launches"])),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": headline["ms"],
         "plain_ms": headline["plain_ms"],
@@ -3821,7 +4248,7 @@ def main() -> int:
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
                     **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats,
-                    "trainer": trainer, "flow_train": flow_train}))
+                    "trainer": trainer, "flow_train": flow_train, "parallel": parallel}, default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

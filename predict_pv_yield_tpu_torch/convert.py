@@ -13,12 +13,17 @@ JAX. Layouts:
 * ``Embed.embedding`` → ``Embedding.weight`` unchanged;
 * the perceiver family's flax tree → perceiver_pytorch's module tree
   (:func:`perceiver_from_flax`), the inverse of the JAX package's
-  ``convert_perceiver_model`` / ``convert_perceiver_pytorch_encoder``.
+  ``convert_perceiver_model`` / ``convert_perceiver_pytorch_encoder``; a
+  tree in the tensor-parallel ``in_value``/``in_gate`` layout is fused first
+  (:func:`fuse_geglu_params`, :func:`split_geglu_params` its inverse);
+* a perceiver state in that unpartitioned layout ↔ one model rank's shard
+  of it (:func:`tp_shard`, :func:`tp_unshard`), the layout of
+  ``Perceiver.partition``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -302,6 +307,7 @@ def perceiver_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
     were made for (``match_configuration``)."""
     if "params" in params:
         params = params["params"]
+    params = fuse_geglu_params(params)
     state: Dict[str, torch.Tensor] = {}
     for stem in ("sat_conv3d_maxpool", "nwp_conv3d_maxpool"):
         if stem in params:
@@ -314,6 +320,131 @@ def perceiver_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
     _gru(params["encoder_rnn"], "encoder_rnn", state)
     _gru(params["decoder_rnn"], "decoder_rnn", state)
     return state
+
+
+def split_geglu_params(params):
+    """Fused GEGLU ``in`` projections of a flax tree → the JAX package's
+    tensor-parallel ``in_value`` / ``in_gate`` layout (``partition_attention``):
+    value = the first half of the fused output columns, gate = the second, as
+    ``jnp.split`` cuts them. A numpy copy of the JAX package's function."""
+
+    def walk(node):
+        if not isinstance(node, Mapping):
+            return node
+        if "in" in node and "out" in node and isinstance(node["in"], Mapping) and "kernel" in node["in"]:
+            fused = node["in"]
+            kernel = np.asarray(fused["kernel"])
+            half = kernel.shape[-1] // 2
+            new = {k: walk(v) for k, v in node.items() if k != "in"}
+            new["in_value"] = {"kernel": kernel[..., :half]}
+            new["in_gate"] = {"kernel": kernel[..., half:]}
+            if "bias" in fused:
+                bias = np.asarray(fused["bias"])
+                new["in_value"]["bias"] = bias[..., :half]
+                new["in_gate"]["bias"] = bias[..., half:]
+            return new
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
+
+
+def fuse_geglu_params(params):
+    """The inverse of :func:`split_geglu_params`: each ``in_value`` /
+    ``in_gate`` pair concatenates back into the fused ``in``; a tree without
+    them comes back as it was. A numpy copy of the JAX package's function."""
+
+    def walk(node):
+        if not isinstance(node, Mapping):
+            return node
+        if "in_value" in node and "in_gate" in node and isinstance(node["in_value"], Mapping):
+            value, gate = node["in_value"], node["in_gate"]
+            new = {k: walk(v) for k, v in node.items() if k not in ("in_value", "in_gate")}
+            fused = {"kernel": np.concatenate([np.asarray(value["kernel"]), np.asarray(gate["kernel"])], axis=-1)}
+            if "bias" in value:
+                fused["bias"] = np.concatenate([np.asarray(value["bias"]), np.asarray(gate["bias"])], axis=-1)
+            new["in"] = fused
+            return new
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
+
+
+# The perceiver's tensor-parallel layout over a model group of ``size`` ranks
+# (the JAX package's ``nn.with_partitioning`` axes): ``to_q`` and each of
+# ``to_kv``'s K and V halves column-sharded (their output rows, in contiguous
+# blocks), ``to_out`` row-sharded (its input columns); the GEGLU feed-forward's
+# fused ``net.0`` split into ``in_value`` / ``in_gate`` (its two halves, each
+# column-sharded with its bias, so a rank's value and gate columns match) and
+# ``net.2`` renamed ``out``, row-sharded. ``to_out``'s and ``out``'s biases
+# stay whole: they are added once, after the sum over the group.
+_COLUMN = ("to_q.weight", "in_value.weight", "in_value.bias", "in_gate.weight", "in_gate.bias")
+_ROW = ("to_out.weight", "fn.out.weight")
+
+
+def tp_sharded(name: str) -> bool:
+    """Whether a parameter of a partitioned perceiver is one rank's shard."""
+    return name.endswith(_COLUMN) or name.endswith(_ROW) or name.endswith("to_kv.weight")
+
+
+def tp_full_name(name: str) -> str:
+    """The unpartitioned name of a partitioned perceiver's parameter."""
+    for part, full in ((".in_value.", ".net.0."), (".in_gate.", ".net.0."), ("fn.out.", "fn.net.2.")):
+        head, sep, leaf = name.rpartition(part)
+        if sep and "." not in leaf:
+            return head + full + leaf
+    return name
+
+
+def tp_shard(full: Mapping[str, torch.Tensor], index: int, size: int) -> Dict[str, torch.Tensor]:
+    """Model rank ``index`` of ``size``'s shard of a state (parameters, or any
+    tensors named like them) in the unpartitioned perceiver_pytorch layout;
+    every other tensor passes through whole."""
+    def rows(t):
+        return t.chunk(size, dim=0)[index].contiguous()
+
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in full.items():
+        head, _, leaf = name.rpartition(".")
+        if name.endswith("to_q.weight"):
+            out[name] = rows(t)
+        elif name.endswith("to_kv.weight"):
+            k, v = t.chunk(2, dim=0)
+            out[name] = torch.cat([rows(k), rows(v)])
+        elif name.endswith("to_out.weight"):
+            out[name] = t.chunk(size, dim=1)[index].contiguous()
+        elif head.endswith("fn.net.0"):
+            fn = head[: -len("net.0")]
+            value, gate = t.chunk(2, dim=0)
+            out[f"{fn}in_value.{leaf}"] = rows(value)
+            out[f"{fn}in_gate.{leaf}"] = rows(gate)
+        elif head.endswith("fn.net.2"):
+            fn = head[: -len("net.2")]
+            out[f"{fn}out.{leaf}"] = t.chunk(size, dim=1)[index].contiguous() if leaf == "weight" else t
+        else:
+            out[name] = t
+    return out
+
+
+def tp_unshard(shards: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`tp_shard`: the shards of ranks 0 … size−1 → the
+    unpartitioned state, in the unpartitioned module order."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in shards[0]:
+        parts = [shard[name] for shard in shards]
+        head, _, leaf = name.rpartition(".")
+        if name.endswith("to_q.weight"):
+            out[name] = torch.cat(parts)
+        elif name.endswith("to_kv.weight"):
+            halves = [p.chunk(2, dim=0) for p in parts]
+            out[name] = torch.cat([h[0] for h in halves] + [h[1] for h in halves])
+        elif name.endswith("to_out.weight") or name.endswith("fn.out.weight"):
+            out[tp_full_name(name)] = torch.cat(parts, dim=1)
+        elif head.endswith("fn.in_value"):
+            gates = [shard[f"{head[: -len('in_value')]}in_gate.{leaf}"] for shard in shards]
+            out[tp_full_name(name)] = torch.cat(parts + gates)
+        elif not head.endswith("fn.in_gate"):
+            out[tp_full_name(name)] = parts[0]
+    return out
 
 
 def strip_lightning_prefix(state_dict: Mapping) -> Dict:

@@ -25,6 +25,15 @@ package computes it with einsums, outside any Pallas kernel); the backend is
 chosen explicitly (:func:`sdpa_backend`). Every LayerNorm uses ``eps=1e-6``,
 flax's default and so the JAX package's; perceiver_pytorch's checkpoints were
 trained with torch's 1e-5.
+
+``partition_attention=True`` is Megatron-style tensor parallelism over a
+model group (the JAX package's ``nn.with_partitioning`` layout, whose sums
+GSPMD inserts): the encoder is built and drawn unpartitioned, and
+:meth:`Perceiver.partition` (called by the trainer once the ranks are known)
+swaps every attention and feed-forward for its shard on one model rank
+(:class:`ShardedAttention`, :class:`ShardedFeedForward`; the layout is
+``convert.tp_shard``'s). A partitioned encoder at one rank computes what the
+unpartitioned one does.
 """
 
 from __future__ import annotations
@@ -37,6 +46,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
+
+from predict_pv_yield_tpu_torch.parallel.tensor_parallel import (
+    all_reduce_both,
+    copy_to_model_group,
+    reduce_from_model_group,
+)
 
 #: flax's LayerNorm epsilon
 LAYER_NORM_EPS = 1e-6
@@ -119,6 +134,88 @@ class Attention(nn.Module):
         return self.to_out(out.transpose(1, 2).flatten(-2))
 
 
+class ShardedAttention(nn.Module):
+    """One model rank's shard of an :class:`Attention` (``index`` of
+    ``size``): ``to_q`` and the K and V halves of ``to_kv`` column-sharded,
+    ``to_out`` row-sharded with its bias added once, after the sum over the
+    group. Where the heads split evenly, the rank attends over its own heads.
+    Where they do not (the cross-attention's one head of 64), each rank holds
+    a block of one head's columns: its ``q·kᵀ`` is a partial sum, summed over
+    the group before the softmax, and the softmax's weights times the rank's
+    V columns give its columns of the output. SDPA takes whole heads, so that
+    path is the plain product, in fp32 softmax as the JAX package's."""
+
+    def __init__(self, full: Attention, index: int, size: int, group):
+        super().__init__()
+        heads, dim_head = full.heads, full.dim_head
+        if heads % size == 0:
+            self.local_heads, self.head = heads // size, None
+        elif size % heads == 0 and dim_head % (size // heads) == 0:
+            self.local_heads, self.head = 1, index // (size // heads)
+        else:
+            raise ValueError(f"{heads} heads of {dim_head} do not split over a model group of {size}")
+        self.heads, self.dim_head, self.group = heads, dim_head, group
+        local = heads * dim_head // size
+        query_dim, context_dim = full.to_q.in_features, full.to_kv.in_features
+        factory = {"device": full.to_q.weight.device, "dtype": full.to_q.weight.dtype}
+        self.to_q = nn.Linear(query_dim, local, bias=False, **factory)
+        self.to_kv = nn.Linear(context_dim, 2 * local, bias=False, **factory)
+        self.to_out = nn.Linear(local, query_dim, **factory)
+
+    def _split(self, t: torch.Tensor) -> torch.Tensor:
+        return t.unflatten(-1, (self.local_heads, -1)).transpose(1, 2)  # (B, h, N, d)
+
+    def keys_values(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's K and V columns of ``context``: (B, h, N, d) each."""
+        k, v = self.to_kv(copy_to_model_group(context, self.group)).chunk(2, dim=-1)
+        return self._split(k), self._split(v)
+
+    def forward(self, x: torch.Tensor, kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        x = copy_to_model_group(x, self.group)
+        if kv is None:
+            k, v = self.to_kv(x).chunk(2, dim=-1)
+            k, v = self._split(k), self._split(v)
+        else:
+            k, v = kv
+        q = self._split(self.to_q(x))
+        if self.head is None:
+            with sdpa_kernel(sdpa_backend(q.device, q.dtype)):
+                out = F.scaled_dot_product_attention(q, k, v)
+        else:
+            partial = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(self.dim_head))  # (B, 1, N, M)
+            logits = partial if self.heads == 1 else F.pad(
+                partial, (0, 0, 0, 0, self.head, self.heads - 1 - self.head))
+            logits = all_reduce_both(logits, self.group)
+            weights = logits.float().softmax(dim=-1).to(q.dtype)[:, self.head: self.head + 1]
+            out = weights @ v
+        out = F.linear(out.transpose(1, 2).flatten(-2), self.to_out.weight)
+        return reduce_from_model_group(out, self.group) + self.to_out.bias
+
+
+class ShardedFeedForward(nn.Module):
+    """One model rank's shard of a :class:`FeedForward`: the fused
+    in-projection as ``in_value`` and ``in_gate`` with matching column
+    blocks, so the gating multiply stays on the rank, and ``out``
+    row-sharded with its bias added after the sum over the group."""
+
+    def __init__(self, full: FeedForward, size: int, group):
+        super().__init__()
+        first, last = full.net[0], full.net[2]
+        if last.in_features % size:
+            raise ValueError(f"a feed-forward of {last.in_features} does not split over a model group of {size}")
+        local = last.in_features // size
+        factory = {"device": first.weight.device, "dtype": first.weight.dtype}
+        self.group = group
+        self.in_value = nn.Linear(first.in_features, local, **factory)
+        self.in_gate = nn.Linear(first.in_features, local, **factory)
+        self.out = nn.Linear(local, last.out_features, **factory)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_model_group(x, self.group)
+        gated = self.in_value(x) * F.gelu(self.in_gate(x))
+        return reduce_from_model_group(F.linear(gated, self.out.weight), self.group) + self.out.bias
+
+
 class PreNorm(nn.Module):
     """LayerNorm on the input (and on the context, where there is one)
     before ``fn``."""
@@ -199,9 +296,9 @@ class Perceiver(nn.Module):
         partition_attention: bool = False,
     ):
         super().__init__()
-        if partition_attention:
-            raise NotImplementedError(
-                "Perceiver(partition_attention=True) is not ported yet (ROADMAP M14: tensor parallelism)")
+        #: tensor parallelism: :meth:`partition` shards the attention and
+        #: feed-forward layers over a model group
+        self.partition_attention = partition_attention
         self.input_channels = input_channels
         self.input_axis = input_axis
         self.num_freq_bands = num_freq_bands
@@ -229,6 +326,24 @@ class Perceiver(nn.Module):
         generic rules)."""
         with torch.no_grad():
             self.latents.normal_(generator=generator)
+
+    def partition(self, index: int, size: int, group=None) -> None:
+        """Swap every attention and feed-forward for its shard on model rank
+        ``index`` of ``size`` over the process group ``group`` (None for one
+        rank), keeping the drawn or loaded weights: the encoder's state is
+        sliced by ``convert.tp_shard``."""
+        from predict_pv_yield_tpu_torch.convert import tp_shard
+
+        if size > 1 and group is None:
+            raise ValueError(f"a model group of {size} ranks needs its process group")
+        full = self.state_dict()
+        for block in {id(layer): layer for layer in self.layers}.values():
+            cross, cross_ff, latent = block
+            prenorms = [(cross, True), (cross_ff, False)] + [(p, i == 0) for pair in latent for i, p in enumerate(pair)]
+            for prenorm, attention in prenorms:
+                prenorm.fn = (ShardedAttention(prenorm.fn, index, size, group) if attention
+                              else ShardedFeedForward(prenorm.fn, size, group))
+        self.load_state_dict(tp_shard(full, index, size), strict=True)
 
     def positions(self, spatial: Tuple[int, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         """The Fourier features of a grid, uploaded once per shape, dtype and

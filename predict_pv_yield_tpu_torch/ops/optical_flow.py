@@ -401,3 +401,33 @@ def flow_sequence(
         poly_sigma=poly_sigma,
         gaussian=gaussian,
     )
+
+
+def flow_sequence_sharded(frames: torch.Tensor, mesh=None, **kwargs) -> torch.Tensor:
+    """``flow_sequence`` over the ranks of the process group (the JAX
+    package's ``flow_sequence_sharded``): the T−1 frame pairs split over the
+    data axis of ``mesh`` (by default ``mesh_for_batch(T − 1)``: the largest
+    data size up to the world that divides them), each rank of it computing
+    its contiguous block of pairs with no collective (ranks past the mesh
+    compute nothing), then every rank receives the whole (T−1, H, W, 2) in
+    one ``all_gather``, the JAX "fetch". Without a process group it is
+    ``flow_sequence``."""
+    import torch.distributed as dist
+
+    from predict_pv_yield_tpu_torch.parallel.mesh import mesh_for_batch, world
+
+    pairs = frames.shape[0] - 1
+    mesh = mesh_for_batch(pairs) if mesh is None else mesh
+    if pairs % mesh.data:
+        raise ValueError(f"{pairs} frame pairs do not split over a data axis of {mesh.data}")
+    per = pairs // mesh.data
+    if mesh.active:
+        start = mesh.data_index * per
+        local = flow_sequence(frames[start: start + per + 1], **kwargs)
+    else:
+        local = frames.new_zeros((per, *frames.shape[1:], 2))
+    if not dist.is_initialized():
+        return local
+    parts = [torch.empty_like(local) for _ in range(world()[0])]
+    dist.all_gather(parts, local.contiguous())
+    return torch.cat([parts[d * mesh.model] for d in range(mesh.data)])

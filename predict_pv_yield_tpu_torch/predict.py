@@ -1,8 +1,10 @@
 """Batch inference with a forecast model — the serve path of the JAX
 package's ``tools/predict.py`` and ``Trainer.predict``.
 
-Weights (a seed, a reference Lightning ``.ckpt`` or a port ``state_dict``
-``.pt``), then batches (the test split of a prepared dataset with
+Weights (a seed, a reference Lightning ``.ckpt``, a port ``state_dict``
+``.pt``, or a checkpoint the port's trainer wrote: its directory or its
+``state.pt``, served through ``Trainer.predict`` as the JAX tool serves its
+trainer's checkpoints), then batches (the test split of a prepared dataset with
 ``--data``, NetCDF files or shards; else fake data shaped to the model's
 geometry), then the satellite decode and the forward on the device, then a
 forecast CSV with the columns ``batch_index, example_index,
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import os
 from collections import deque
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -40,6 +43,7 @@ from predict_pv_yield_tpu_torch.losses import WeightedLosses, mse_loss, nmae_los
 from predict_pv_yield_tpu_torch.metrics import mae_each_forecast_horizon, mse_each_forecast_horizon
 from predict_pv_yield_tpu_torch.models import get_model
 from predict_pv_yield_tpu_torch.models.layers import init_parameters
+from predict_pv_yield_tpu_torch.training.callbacks import STATE_FILE, load_state
 from predict_pv_yield_tpu_torch.utils import full_fp32, resolve_device
 
 
@@ -181,6 +185,18 @@ def load_model_config(path: str) -> Dict:
         return yaml.safe_load(fh)
 
 
+def trainer_checkpoint(path: str) -> Optional[str]:
+    """The checkpoint directory of a path that names one the port's trainer
+    wrote (the directory, or its ``state.pt``), else None. A directory
+    without ``state.pt`` (the JAX package's orbax checkpoint) counts too:
+    reading it raises, naming ROADMAP T8."""
+    if os.path.isdir(path):
+        return path
+    if os.path.basename(path) == STATE_FILE:
+        return os.path.dirname(path)
+    return None
+
+
 def build_model(model_name: str, model_config: Dict, checkpoint: Optional[str] = None, seed: int = 0,
                 configuration=None):
     """The model ``model_name`` with the hyperparameters ``model_config``
@@ -189,7 +205,8 @@ def build_model(model_name: str, model_config: Dict, checkpoint: Optional[str] =
     follow the dataset ``configuration`` where one is given
     (``match_configuration``; the fake data of :func:`fake_loader` follows
     the model). Its weights come from ``checkpoint`` (loaded with
-    ``strict=True``), else from ``seed``."""
+    ``strict=True``: a trainer checkpoint's ``model`` state, else a
+    Lightning or ``state_dict`` file), else from ``seed``."""
     config = dict(model_config)
     model_cls = get_model(model_name)
     target = config.pop("_target_", None)
@@ -200,7 +217,9 @@ def build_model(model_name: str, model_config: Dict, checkpoint: Optional[str] =
         model.match_configuration(configuration)
     init_parameters(model, torch.Generator().manual_seed(seed))
     if checkpoint is not None:
-        model.load_state_dict(load_lightning_checkpoint(checkpoint), strict=True)
+        directory = trainer_checkpoint(checkpoint)
+        state = load_state(directory)["model"] if directory else load_lightning_checkpoint(checkpoint)
+        model.load_state_dict(state, strict=True)
     return model.eval()
 
 
@@ -241,16 +260,26 @@ def run(
 ) -> Dict:
     """The CLI's work for a model config given as a dict → ``{"predictions",
     "rows", "nmae"}`` (``nmae`` None unless asked for). Without a
-    checkpoint the weights come from seed 0; without ``data`` the batches
-    are fake."""
+    checkpoint the weights come from seed 0; a trainer checkpoint is served
+    through ``Trainer.predict`` with it as ``resume_from_checkpoint``;
+    without ``data`` the batches are fake."""
     device = resolve_device(device)
+    directory = trainer_checkpoint(checkpoint) if checkpoint else None
+    weights = None if directory else checkpoint
     if data:
         loader, configuration = data_loader(data, n_batches)
-        model = build_model(model_name, model_config, checkpoint, configuration=configuration)
+        model = build_model(model_name, model_config, weights, configuration=configuration)
     else:
-        model = build_model(model_name, model_config, checkpoint)
+        model = build_model(model_name, model_config, weights)
         loader = fake_loader(model, n_batches)
-    predictions = predict(model, loader, device)
+    if directory:
+        from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+        trainer = Trainer(max_epochs=1, profiler=None, weights_summary=None, device=device,
+                          resume_from_checkpoint=directory)
+        predictions = trainer.predict(model, dataloaders=loader)
+    else:
+        predictions = predict(model, loader, device)
     rows = write_forecasts(predictions, out)
     print(f"wrote {rows} forecasts to {out}")
     score = None
@@ -266,7 +295,8 @@ def main(argv=None) -> Dict:
                         help="model-zoo name (conv3d_sat_nwp, conv3d, conv3d_nwp, cnn_concat_timesteps, cnn_rnn, "
                         "perceiver, perceiver_nwp_sat, perceiver_conv3d_nwp_sat)")
     parser.add_argument("--model-config", required=True, help="model hyperparameter YAML")
-    parser.add_argument("--checkpoint", help="reference Lightning .ckpt or port state_dict .pt")
+    parser.add_argument("--checkpoint", help="reference Lightning .ckpt, port state_dict .pt, or a checkpoint "
+                        "directory of the port's trainer (or its state.pt)")
     parser.add_argument("--data", help="prepared dataset dir: NetCDF files or shards (omit for fake data)")
     parser.add_argument("--n-batches", type=int, default=10)
     parser.add_argument("--out", default="forecasts.csv")

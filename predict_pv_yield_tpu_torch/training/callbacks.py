@@ -6,7 +6,10 @@ A checkpoint is a directory: ``state.pt`` (``torch.save`` of the trainer's
 gradient-accumulation buffer), ``loop.json`` (loop counters and every
 callback's state, ``Trainer.loop_state``) and, for a best save,
 ``monitor.json``. Resume from it is exact. The JAX package's orbax
-checkpoint directories are not read (ROADMAP T8).
+checkpoint directories are not read (ROADMAP T8). With several ranks the
+main process writes, after every rank has taken the trainer's ``state``
+(under tensor parallelism a gather over the model group), and every rank
+waits at a barrier after each write.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import shutil
 from typing import Dict, Optional
 
 import torch
+
+from predict_pv_yield_tpu_torch.parallel.mesh import barrier, is_main_process
 
 log = logging.getLogger(__name__)
 
@@ -47,18 +52,21 @@ class Callback:
 def save_state(path: str, state, loop: Optional[Dict] = None, state_file: Optional[str] = None) -> None:
     """Write a checkpoint directory at ``path`` (replacing one there):
     ``state`` with ``torch.save``, or a copy of the already written
-    ``state_file``, and ``loop`` as ``loop.json``."""
-    path = os.path.abspath(path)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.makedirs(path)
-    if state_file is not None:
-        shutil.copyfile(state_file, os.path.join(path, STATE_FILE))
-    else:
-        torch.save(state, os.path.join(path, STATE_FILE))
-    if loop is not None:
-        with open(os.path.join(path, "loop.json"), "w") as fh:
-            json.dump(loop, fh)
+    ``state_file``, and ``loop`` as ``loop.json``. The main process writes;
+    every rank calls it and waits for the write."""
+    if is_main_process():
+        path = os.path.abspath(path)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        if state_file is not None:
+            shutil.copyfile(state_file, os.path.join(path, STATE_FILE))
+        else:
+            torch.save(state, os.path.join(path, STATE_FILE))
+        if loop is not None:
+            with open(os.path.join(path, "loop.json"), "w") as fh:
+                json.dump(loop, fh)
+    barrier()
 
 
 def load_loop_state(path: str) -> Optional[Dict]:
@@ -117,7 +125,9 @@ class ModelCheckpoint(Callback):
             return
         score = metrics.get(self.monitor)
         epoch = engine.current_epoch
-        os.makedirs(self.dirpath, exist_ok=True)
+        main = is_main_process()
+        if main:
+            os.makedirs(self.dirpath, exist_ok=True)
 
         # Best-k bookkeeping runs before the loop_state snapshot, so the
         # loop.json written into `last` (and into the new best checkpoint)
@@ -140,25 +150,28 @@ class ModelCheckpoint(Callback):
                 self.best_k.sort(key=lambda sp: sp[0], reverse=self.mode != "min")
                 while len(self.best_k) > self.save_top_k:
                     _, stale = self.best_k.pop()
-                    if os.path.exists(stale):
+                    if main and os.path.exists(stale):
                         shutil.rmtree(stale, ignore_errors=True)
                 self.best_model_score, self.best_model_path = self.best_k[0]
                 best_path = path
 
         loop = getattr(engine, "loop_state", lambda: None)()
+        state = engine.state if best_path is not None or self.save_last else None
 
         # the best checkpoint is written before `last`, so a `last` whose
         # loop.json lists it never exists without it
         if best_path is not None:
-            save_state(best_path, engine.state, loop)
-            with open(os.path.join(best_path, "monitor.json"), "w") as fh:
-                json.dump({"monitor": self.monitor, "score": score, "epoch": epoch}, fh)
-            if self.verbose:
-                log.info("checkpoint %s: %s=%.6f", best_path, self.monitor, score)
+            save_state(best_path, state, loop)
+            if main:
+                with open(os.path.join(best_path, "monitor.json"), "w") as fh:
+                    json.dump({"monitor": self.monitor, "score": score, "epoch": epoch}, fh)
+                if self.verbose:
+                    log.info("checkpoint %s: %s=%.6f", best_path, self.monitor, score)
+            barrier()
 
         if self.save_last:
             written = os.path.join(best_path, STATE_FILE) if best_path is not None else None
-            save_state(os.path.join(self.dirpath, "last"), engine.state, loop, state_file=written)
+            save_state(os.path.join(self.dirpath, "last"), state, loop, state_file=written)
 
     def state_dict(self) -> Dict:
         return {

@@ -63,9 +63,33 @@ The rest of the JAX engine's surface:
   after each group with k > 1), ``profiler="jax"`` (a device trace of the
   fit, written by ``torch.profiler``), and validation plots.
 
-``model_parallel`` and ``devices`` raise ``NotImplementedError`` naming
-their ROADMAP item when set to anything but their default; the
-Lightning-compat keywords the JAX engine ignores are ignored here too.
+Several ranks (``torchrun``, ``parallel/distributed.py``) train as the
+JAX engine's mesh does, with the collectives written out (``parallel/``):
+
+* ``devices``: None for every rank of the launched group, else a count (or
+  a list of that many entries) that must equal the world size.
+* **Data parallelism** over the ranks that share a model coordinate (the
+  data group), the Trainer's own rule rather than a
+  ``DistributedDataParallel`` wrapper: parameters are broadcast from the
+  group's first rank at ``setup``; each step's gradients are averaged over
+  the group in one flat, bucketed ``all_reduce`` before accumulation and
+  clipping (so the global-norm clip sees the global gradient, as under
+  GSPMD); the step's and the evaluation's metrics are averaged over it
+  before they are logged. Each rank trains on the batches its own loader
+  gives (the global batch is the local one times the data size); the
+  validation results hold the rank's own rows. On the card the gradient
+  ``all_reduce`` is inside the CUDA graph of k steps.
+* **Tensor parallelism** (``model_parallel``, the model group of each
+  replica): a model whose encoder asks for it (``partition_attention``) is
+  drawn unpartitioned from the seed and then sliced
+  (``Perceiver.partition``), so it starts from the weights of the
+  unpartitioned fit at the same seed; a checkpoint holds the full tensors in
+  the unpartitioned layout, gathered over the model group, and loading one
+  slices each rank's shard.
+* Logs, plots, validation results and checkpoints are written by the main
+  process only, each write followed by a barrier.
+
+The Lightning-compat keywords the JAX engine ignores are ignored here too.
 """
 
 from __future__ import annotations
@@ -81,11 +105,14 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from predict_pv_yield_tpu_torch import convert
 from predict_pv_yield_tpu_torch.data.batch import Batch, as_batch
 from predict_pv_yield_tpu_torch.losses import WeightedLosses
 from predict_pv_yield_tpu_torch.models.base import is_bf16
 from predict_pv_yield_tpu_torch.models.layers import init_parameters
+from predict_pv_yield_tpu_torch.parallel.mesh import barrier, build_mesh, process_groups, world
 from predict_pv_yield_tpu_torch.predict import channel_names_of, eval_step, forward_and_metrics, iter_batches
 from predict_pv_yield_tpu_torch.training.callbacks import Callback, ModelCheckpoint, load_loop_state, load_state
 from predict_pv_yield_tpu_torch.training.loggers import LoggerCollection
@@ -93,12 +120,6 @@ from predict_pv_yield_tpu_torch.utils import count_parameters, full_fp32, is_mai
 from predict_pv_yield_tpu_torch.validation import make_validation_results, save_validation_results_to_logger
 
 log = logging.getLogger(__name__)
-
-#: knob → (its default, the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "model_parallel": (1, "T9: model_parallel and multi-device training (M14)"),
-    "devices": (None, "T9: model_parallel and multi-device training (M14)"),
-}
 
 #: fields kept float32 on the float16 wire: OSGB eastings and northings
 #: (~1e5–1e6) overflow float16's 65504. By name, so a field's dtype does not
@@ -111,11 +132,8 @@ TRACE_DIR = "jax_trace"
 WIRE_PROBE_SAMPLES = 3
 #: validation batches plotted per validation pass (the first ones)
 PLOTTED_BATCHES = 5
-
-
-def _not_ported(knob: str, value) -> None:
-    default, item = _NOT_PORTED[knob]
-    raise NotImplementedError(f"Trainer({knob}={value!r}) is not ported yet (ROADMAP {item}); default {default!r}")
+#: the most gradient bytes one ``all_reduce`` of the data group carries
+BUCKET_BYTES = 25 * 2**20
 
 
 def wire_cast(item):
@@ -226,12 +244,13 @@ class Trainer:
         device="cuda",
         **lightning_compat: Any,
     ):
-        for knob, value, changed in (
-            ("model_parallel", model_parallel, int(model_parallel) != 1),
-            ("devices", devices, devices is not None),
-        ):
-            if changed:
-                _not_ported(knob, value)
+        if devices is not None:
+            count = devices if isinstance(devices, int) else len(devices)
+            if count != world()[0]:
+                raise ValueError(
+                    f"Trainer(devices={devices!r}): {count} device(s), but {world()[0]} rank(s) were launched; "
+                    "one process drives each device (torchrun --nproc_per_node N)"
+                )
         if profiler not in (None, "simple", "jax"):
             raise ValueError(f"Trainer(profiler={profiler!r}): 'simple', 'jax' or None")
         if isinstance(val_check_interval, float) and not 0.0 <= val_check_interval <= 1.0:
@@ -240,6 +259,14 @@ class Trainer:
                 "[0, 1]; pass an int batch cadence"
             )
         self.device = resolve_device(device)
+        self.devices = devices
+        #: ranks per replica on the mesh's model axis (tensor parallelism)
+        self.model_parallel = max(1, int(model_parallel))
+        #: the (data, model) layout of the launched ranks (``ValueError`` if
+        #: ``model_parallel`` does not fit); its process groups come at setup
+        self.mesh = build_mesh(model_parallel=self.model_parallel)
+        self._data_group = self._model_group = None
+        self._groups_built = False
         self.seed = seed
         #: truth-vs-forecast plots of the first validation batches, as HTML
         #: artifacts (needs matplotlib; without it, said once per run)
@@ -334,6 +361,10 @@ class Trainer:
         self._satellite_channels = None
         #: the dataset configuration the loaders came with, if any
         self._configuration = None
+        #: whether the model holds partitioned encoders, and which of
+        #: ``_params`` are one rank's shard
+        self._partitioned = False
+        self._sharded: List[bool] = []
 
     # ------------------------------------------------------------------
     @property
@@ -346,24 +377,33 @@ class Trainer:
     @property
     def state(self) -> Optional[Dict[str, Any]]:
         """What a checkpoint holds: the model and optimiser ``state_dict``s
-        and the accumulation window (None before ``setup``). Assigning a
-        loaded state restores all three in place."""
+        and the accumulation window (None before ``setup``); a partitioned
+        model's in the unpartitioned layout, gathered over the model group
+        (every rank of the group must read it). Assigning a loaded state
+        restores all three in place (a partitioned model takes its shard)."""
         if self._model is None:
             return None
         accumulation = None
         if self._accumulated is not None:
-            accumulation = {"grads": list(self._accumulated), "mini_step": self._mini_step}
-        return {
-            "model": self._model.state_dict(),
-            "optimizer": self.optimizer.state_dict() if self.optimizer is not None else None,
-            "accumulation": accumulation,
-        }
+            accumulation = {"grads": self._to_full(list(self._accumulated)), "mini_step": self._mini_step}
+        model = self._model.state_dict()
+        optimizer = self.optimizer.state_dict() if self.optimizer is not None else None
+        if self._partitioned:
+            model = convert.tp_unshard(self._gather_shards(model))
+            if optimizer is not None:
+                optimizer = self._optimizer_layout(optimizer, full=True)
+        return {"model": model, "optimizer": optimizer, "accumulation": accumulation}
 
     @state.setter
     def state(self, state: Dict[str, Any]) -> None:
-        self._model.load_state_dict(state["model"], strict=True)
-        if self.optimizer is not None and state.get("optimizer") is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
+        model, optimizer = state["model"], state.get("optimizer")
+        if self._partitioned:
+            model = convert.tp_shard(model, self.mesh.model_index, self.mesh.model)
+            if optimizer is not None:
+                optimizer = self._optimizer_layout(optimizer, full=False)
+        self._model.load_state_dict(model, strict=True)
+        if self.optimizer is not None and optimizer is not None:
+            self.optimizer.load_state_dict(optimizer)
             # the trainer's learning rate, as the JAX engine's optimiser
             # takes it from the trainer and not from the checkpoint
             for group in self.optimizer.param_groups:
@@ -371,10 +411,75 @@ class Trainer:
         self._graphs = {}  # they hold the replaced optimiser state
         accumulation = state.get("accumulation")
         if accumulation:
-            self._accumulated = [g.to(self.device).clone() for g in accumulation["grads"]]
+            grads = self._to_shard([g.to(self.device) for g in accumulation["grads"]])
+            self._accumulated = [g.clone() for g in grads]
             self._mini_step = int(accumulation["mini_step"])
         else:
             self._accumulated, self._mini_step = None, 0
+
+    # --- the partitioned layout -------------------------------------------
+    def _gather_shards(self, tensors: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+        """Each model rank's ``tensors`` (named as the partitioned model's
+        parameters), in model-rank order: the shards gathered over the model
+        group, a tied tensor once."""
+        size = self.mesh.model
+        if size == 1:
+            return [tensors]
+        shards: List[Dict[str, torch.Tensor]] = [{} for _ in range(size)]
+        gathered: Dict[tuple, List[torch.Tensor]] = {}
+        for name, t in tensors.items():
+            if not convert.tp_sharded(name):
+                parts = [t] * size
+            else:
+                key = (t.data_ptr(), tuple(t.shape))
+                if key not in gathered:
+                    gathered[key] = [torch.empty_like(t) for _ in range(size)]
+                    dist.all_gather(gathered[key], t.contiguous(), group=self._model_group)
+                parts = gathered[key]
+            for shard, part in zip(shards, parts):
+                shard[name] = part
+        return shards
+
+    def _param_names(self) -> List[str]:
+        return [name for name, p in self._model.named_parameters() if p.requires_grad]
+
+    def _full_names(self) -> List[str]:
+        """The unpartitioned parameter names, in the unpartitioned model's
+        order (``_params``' order with ``in_value``/``in_gate`` merged)."""
+        return list(dict.fromkeys(convert.tp_full_name(name) for name in self._param_names()))
+
+    def _to_full(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Tensors aligned with ``_params`` → aligned with the unpartitioned
+        parameters (gathered over the model group)."""
+        if not self._partitioned:
+            return tensors
+        full = convert.tp_unshard(self._gather_shards(dict(zip(self._param_names(), tensors))))
+        return [full[name] for name in self._full_names()]
+
+    def _to_shard(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The inverse of :meth:`_to_full`: this rank's shards."""
+        if not self._partitioned:
+            return tensors
+        shard = convert.tp_shard(dict(zip(self._full_names(), tensors)), self.mesh.model_index, self.mesh.model)
+        return [shard[name] for name in self._param_names()]
+
+    def _optimizer_layout(self, optimizer: Dict[str, Any], full: bool) -> Dict[str, Any]:
+        """Adam's ``state_dict`` in the unpartitioned layout (``full``) or
+        back in this rank's: its moments converted as the parameters are,
+        its step counts carried per parameter."""
+        names = self._full_names() if full else self._param_names()
+        before = self._param_names() if full else self._full_names()
+        states = optimizer["state"]
+        converted: Dict[int, Dict[str, torch.Tensor]] = {}
+        if states:
+            convert_list = self._to_full if full else self._to_shard
+            steps = {convert.tp_full_name(before[i]): st["step"] for i, st in states.items()}
+            moments = {key: convert_list([states[i][key] for i in range(len(before))])
+                       for key in ("exp_avg", "exp_avg_sq")}
+            converted = {i: {"step": steps[convert.tp_full_name(name)], "exp_avg": moments["exp_avg"][i],
+                             "exp_avg_sq": moments["exp_avg_sq"][i]} for i, name in enumerate(names)}
+        groups = [{**group, "params": list(range(len(names)))} for group in optimizer["param_groups"]]
+        return {"state": converted, "param_groups": groups}
 
     # ------------------------------------------------------------------
     def _adopt_configuration(self, source) -> None:
@@ -404,9 +509,18 @@ class Trainer:
         if self._configuration is not None and hasattr(model, "match_configuration"):
             model.match_configuration(self._configuration)
         init_parameters(model, torch.Generator().manual_seed(self.seed))
+        self._join_mesh()
+        encoders = [m for m in model.modules() if getattr(m, "partition_attention", False) and hasattr(m, "partition")]
+        for encoder in encoders:
+            encoder.partition(self.mesh.model_index, self.mesh.model, self._model_group)
+        self._partitioned = bool(encoders)
         if self.bf16 and hasattr(model, "compute_dtype") and model.compute_dtype is None:
             model.compute_dtype = torch.bfloat16
         model = model.to(self.device)
+        if self._data_group is not None and self.mesh.data > 1:
+            source = self.mesh.data_ranks(self.mesh.model_index)[0]
+            for tensor in list(model.parameters()) + list(model.buffers()):
+                dist.broadcast(tensor.data, src=source, group=self._data_group)
         self._model = model
         n_params = count_parameters(model)
         self.logger.log_hyperparams({
@@ -416,6 +530,7 @@ class Trainer:
         })
         self._log_weights_summary(model)
         self._params = [p for p in model.parameters() if p.requires_grad]
+        self._sharded = [self._partitioned and convert.tp_sharded(name) for name in self._param_names()]
         # Adam with bias correction: the algebra of optax.adam (eps_root 0);
         # on the card in its capturable form (step and learning rate device
         # tensors), so that k steps can run inside one CUDA graph
@@ -432,6 +547,16 @@ class Trainer:
             self.state = load_state(self.resume_from_checkpoint)
             self._restore_loop_state(self.resume_from_checkpoint)
             log.info("resumed from %s", self.resume_from_checkpoint)
+
+    def _join_mesh(self) -> None:
+        """The mesh of the launched ranks and, once, its process groups."""
+        self.mesh = build_mesh(model_parallel=self.model_parallel)
+        if self._groups_built:
+            return
+        if dist.is_initialized() and self.device.type == "cpu" and dist.get_backend() == "nccl":
+            raise ValueError("a NCCL process group reduces CUDA tensors only: a CPU trainer needs gloo")
+        self._data_group, self._model_group = process_groups(self.mesh)
+        self._groups_built = True
 
     # ------------------------------------------------------------------
     def loop_state(self) -> Dict[str, Any]:
@@ -490,18 +615,25 @@ class Trainer:
         log.info("weights summary (%s):\n%s", self.weights_summary, "\n".join(lines))
 
     # ------------------------------------------------------------------
-    def _grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The global ``track_grad_norm`` p-norm of ``grads``."""
-        p = self.track_grad_norm
+    def _grad_norm(self, grads: List[torch.Tensor], p: Optional[float] = None) -> torch.Tensor:
+        """The global p-norm of ``grads`` (``track_grad_norm``'s p by
+        default). Under tensor parallelism the shards' part is summed (or
+        its maximum taken) over the model group, the replicated tensors
+        counted once."""
+        p = self.track_grad_norm if p is None else p
         if not grads:
             return torch.zeros((), device=self.device)
-        if p == 2.0:
-            return _global_norm(grads)
+        if self._model_group is None or self.mesh.model == 1 or not any(self._sharded):
+            return _p_norm(grads, p)
+        shards = [g for g, sharded in zip(grads, self._sharded) if sharded]
+        whole = [g for g, sharded in zip(grads, self._sharded) if not sharded]
+        part = _p_norm(shards, p, root=False)
+        dist.all_reduce(part, op=dist.ReduceOp.MAX if math.isinf(p) else dist.ReduceOp.SUM, group=self._model_group)
+        rest = _p_norm(whole, p, root=False) if whole else torch.zeros_like(part)
         if math.isinf(p):
-            return torch.max(torch.stack([g.abs().max() for g in grads]))
-        if p == 0.0:
-            return sum((g != 0).sum() for g in grads).float()
-        return torch.pow(sum(torch.sum(g.abs() ** p) for g in grads), 1.0 / p)
+            return torch.maximum(part, rest)
+        total = part + rest
+        return total if p == 0.0 else torch.pow(total, 1.0 / p)
 
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One train step on a device batch → its metrics (0-d device
@@ -526,7 +658,30 @@ class Trainer:
             if self._params:
                 grads = torch.autograd.grad(metrics["NMAE"], self._params, allow_unused=True)
                 grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self._params, grads)]
+                grads = self._average_gradients(grads)
         return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def _average_gradients(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``grads`` averaged over the data group: flattened into buckets of
+        at most ``BUCKET_BYTES``, one ``all_reduce`` each."""
+        if self._data_group is None:
+            return grads
+        out: List[torch.Tensor] = []
+        for bucket in _buckets(grads, BUCKET_BYTES):
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat, group=self._data_group)
+            if self.mesh.data > 1:
+                flat.div_(self.mesh.data)
+            out.extend(part.view_as(g) for part, g in zip(flat.split([g.numel() for g in bucket]), bucket))
+        return out
+
+    def _data_mean(self, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor`` averaged over the data group (metrics)."""
+        if self._data_group is None:
+            return tensor
+        tensor = tensor.clone()
+        dist.all_reduce(tensor, group=self._data_group)
+        return tensor / self.mesh.data if self.mesh.data > 1 else tensor
 
     @torch.no_grad()
     def apply_gradients(self, grads: List[torch.Tensor]) -> None:
@@ -545,7 +700,7 @@ class Trainer:
             grads = self._accumulated
         if self.gradient_clip_val > 0:
             max_norm = self.gradient_clip_val
-            norm = _global_norm(grads)
+            norm = self._grad_norm(grads, 2.0)
             keep = norm < max_norm  # a NaN norm clips (to NaN), as in optax
             grads = [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
         for p, g in zip(self._params, grads):
@@ -856,7 +1011,7 @@ class Trainer:
                     advanced = True
                     lr = float(min_lr * ratio ** (min(step // k, span) / span))
                     self._set_lr(lr)
-                    loss = float(self.train_step(device_batch)["NMAE"])
+                    loss = float(self._data_mean(self.train_step(device_batch)["NMAE"]))
                     if not np.isfinite(loss):
                         diverged = True
                         break
@@ -1142,8 +1297,8 @@ class Trainer:
 
         # per-horizon metrics over the first forecast_len_30 horizons
         if horizon_mse:
-            h_mse = np.mean(torch.stack(horizon_mse).cpu().numpy(), axis=0)
-            h_mae = np.mean(torch.stack(horizon_mae).cpu().numpy(), axis=0)
+            h_mse = np.mean(self._data_mean(torch.stack(horizon_mse)).cpu().numpy(), axis=0)
+            h_mae = np.mean(self._data_mean(torch.stack(horizon_mae)).cpu().numpy(), axis=0)
             horizon_metrics = {}
             for i in range(min(model.forecast_len_30, h_mse.shape[0])):
                 horizon_metrics[f"MSE_forecast_horizon_{i}/{tag}"] = float(h_mse[i])
@@ -1153,6 +1308,7 @@ class Trainer:
             self.callback_metrics.update(horizon_metrics)
 
         if results_parts and is_main_process():
+            # this rank's rows, as the JAX engine's _host_local_array gives them
             forecasts = torch.stack(y_hats).cpu().numpy()  # one copy for the epoch
             tables = [
                 make_validation_results(predictions_mw=y_hat * part["capacity_mwp"], **part)
@@ -1164,6 +1320,8 @@ class Trainer:
                 current_epoch=self.current_epoch,
                 logger=self.logger,
             )
+        if validating:
+            barrier()  # after the main process's plots and results
         return epoch_metrics
 
     def _plot_batch(self, model, host_batch: Batch, y_hat: torch.Tensor, batch_idx: int) -> None:
@@ -1229,7 +1387,7 @@ class Trainer:
         keys = sorted(device_metrics[0])  # the JAX engine's order: its pytree sorts dict keys
         # a group's metrics are (k,) each: one row per step
         rows = [torch.stack([m[k] for k in keys], dim=-1).reshape(-1, len(keys)) for m in device_metrics]
-        table = torch.cat(rows).cpu().numpy()
+        table = self._data_mean(torch.cat(rows)).cpu().numpy()
         start = self.global_step - len(table)
         # log_every_n_steps thins the training rows only
         every = self.log_every_n_steps if tag == "Train" else 1
@@ -1267,6 +1425,23 @@ class Trainer:
         self.logger.save()
         return metrics
 
+    def predict(self, model=None, dataloaders=None) -> List[np.ndarray]:
+        """The forecasts for every batch of ``dataloaders``: one host
+        ``y_hat`` (batch, forecast_len) per batch, this rank's rows (the JAX
+        engine's ``predict``). Sets the model up first if there is no state
+        (``resume_from_checkpoint`` restores its weights)."""
+        self._adopt_configuration(dataloaders)
+        if self._model is None:
+            self.setup(model)
+        outputs = []
+        self._model.eval()
+        try:
+            for _, device_batch in self._iter_batches(dataloaders, None):
+                outputs.append(self._eval_step(device_batch)[3])
+        finally:
+            self._model.train()
+        return [y_hat.cpu().numpy() for y_hat in outputs]
+
     def test(self, model=None, datamodule=None, dataloaders=None):
         datamodule = datamodule or self._datamodule
         loader = dataloaders
@@ -1297,6 +1472,32 @@ def _groups(items, k: int):
     yield from group
 
 
-def _global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: the square root of the summed squares."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+def _p_norm(tensors: List[torch.Tensor], p: float, root: bool = True) -> torch.Tensor:
+    """The global p-norm of ``tensors`` (p = 2: ``optax.global_norm``; ∞:
+    the largest |entry|; 0: the count of non-zeros); without ``root`` the
+    sum of |t|^p before the root (for ∞ and 0, the norm itself)."""
+    if math.isinf(p):
+        return torch.max(torch.stack([t.abs().max() for t in tensors]))
+    if p == 0.0:
+        return sum((t != 0).sum() for t in tensors).float()
+    if p == 2.0:
+        total = sum(torch.sum(t * t) for t in tensors)
+        return torch.sqrt(total) if root else total
+    total = sum(torch.sum(t.abs() ** p) for t in tensors)
+    return torch.pow(total, 1.0 / p) if root else total
+
+
+def _buckets(tensors: List[torch.Tensor], limit: int):
+    """``tensors`` in order, in runs of at most ``limit`` bytes (a larger
+    tensor alone)."""
+    bucket: List[torch.Tensor] = []
+    size = 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if bucket and size + nbytes > limit:
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(t)
+        size += nbytes
+    if bucket:
+        yield bucket

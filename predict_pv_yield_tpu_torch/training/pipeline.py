@@ -1,8 +1,9 @@
 """The training pipeline: config → objects → fit/validate → metric (a port
 of the JAX package's ``training/pipeline.py``).
 
-Seed, instantiate datamodule / model / callbacks / loggers / trainer from the
-composed config, log hyperparameters, fit (or validate when a
+Seed, instantiate datamodule / model / callbacks / loggers, join the process
+group when launched by ``torchrun`` (``parallel.distributed``), instantiate
+the trainer, log hyperparameters, fit (or validate when a
 ``validate_only`` key is present), an optional test pass on the best
 checkpoint, finish, and return the ``optimized_metric``.
 """
@@ -18,6 +19,7 @@ import torch
 
 from predict_pv_yield_tpu_torch import utils
 from predict_pv_yield_tpu_torch.config.instantiate import instantiate
+from predict_pv_yield_tpu_torch.parallel.distributed import initialize_distributed
 from predict_pv_yield_tpu_torch.training.callbacks import load_state
 
 log = logging.getLogger(__name__)
@@ -67,6 +69,9 @@ def train(config: Dict[str, Any], datamodule=None) -> Optional[float]:
             log.info("Instantiating logger <%s>", lg_conf["_target_"])
             loggers.append(instantiate(lg_conf))
 
+    # every rank loads the same batches: the JAX package's data modules never
+    # slice by process (ROADMAP §3)
+    initialize_distributed(device=config["trainer"].get("device", "cuda"))
     log.info("Instantiating trainer <%s>", config["trainer"]["_target_"])
     trainer = instantiate(config["trainer"], callbacks=callbacks, logger=loggers)
     if seed is not None:

@@ -12,6 +12,8 @@ from typing import Any, Dict, Sequence
 
 import torch
 
+from predict_pv_yield_tpu_torch.parallel.mesh import is_main_process  # noqa: F401  (loggers import it here)
+
 log = logging.getLogger(__name__)
 
 
@@ -50,15 +52,6 @@ def full_fp32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = previous
-
-
-def is_main_process() -> bool:
-    """Rank zero of an initialised ``torch.distributed`` group, else True:
-    loggers and config printing write from one process only."""
-    distributed = torch.distributed
-    if distributed.is_available() and distributed.is_initialized():
-        return distributed.get_rank() == 0
-    return True
 
 
 def extras(config: Dict[str, Any]) -> None:

@@ -104,8 +104,9 @@ def test_instantiate_builds_port_objects(tmp_cwd):
     (["model=conv3d"], ("model",), None),
     (["model=conv3d_nwp"], ("model",), None),
     (["experiment=003_perceiver_rnn"], ("trainer",), None),
-    (["experiment=perceiver_tp"], ("model",), "M14"),
-    (["experiment=perceiver_tp", "trainer.precision=32"], ("trainer",), "T9"),
+    (["experiment=perceiver_tp"], ("model",), None),
+    # model_parallel 2 does not fit one process, as the JAX build_mesh says
+    (["experiment=perceiver_tp", "trainer.precision=32"], ("trainer",), "does not fit"),
     (["model=cnn_rnn"], ("model",), None),
     (["model=cnn_concat_timesteps"], ("model",), None),
     (["logger=tensorboard"], ("logger", "tensorboard"), None),
@@ -122,9 +123,11 @@ def test_instantiate_names_the_roadmap_item(overrides, section, item, monkeypatc
         assert type(made).__module__.startswith("predict_pv_yield_tpu_torch.")
         if section == ("trainer",):  # experiment 003 trains at precision 16: bf16
             assert made.bf16 and made.precision == 16
+        if "experiment=perceiver_tp" in overrides:
+            assert made.partition_attention and made.perceiver.partition_attention
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        instantiate(node)
+    with pytest.raises(ValueError, match=item):
+        instantiate(node, device="cpu")
 
 
 @pytest.mark.parametrize("overrides,error,match", [

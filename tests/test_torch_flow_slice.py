@@ -266,6 +266,9 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "predict_pv_yield_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
+    # the multi-process package too
+    parallel = {path.name for path in files if path.parent.name == "parallel"}
+    assert {"__init__.py", "mesh.py", "distributed.py", "tensor_parallel.py"} <= parallel
     forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "predict_pv_yield_tpu"}
     offenders = [
         (str(path.relative_to(REPO)), module)

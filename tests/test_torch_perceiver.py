@@ -46,7 +46,7 @@ from predict_pv_yield_tpu_torch.models import MODEL_REGISTRY, get_model
 from predict_pv_yield_tpu_torch.models.layers import init_parameters
 from predict_pv_yield_tpu_torch.models.perceiver import PerceiverModel
 from predict_pv_yield_tpu_torch.models.perceiver_conv3d_nwp_sat import Model as Conv3dNwpSat
-from predict_pv_yield_tpu_torch.models.perceiver_core import Perceiver
+from predict_pv_yield_tpu_torch.models.perceiver_core import FeedForward, Perceiver, ShardedFeedForward
 from predict_pv_yield_tpu_torch.models.perceiver_nwp_sat import Model as NwpSat
 from predict_pv_yield_tpu_torch.predict import build_model
 from predict_pv_yield_tpu_torch.training.engine import Trainer
@@ -260,8 +260,14 @@ def test_encoder_matches_jax_and_checks_its_input():
         encoder(torch.zeros(2, 20, C_SAT))
     with pytest.raises(ValueError, match="input_channels=3"):
         encoder(torch.zeros(2, 5, 4, C_SAT + 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP M14"):
-        _encoder(partition_attention=True)
+    # partitioned at one rank (tensor parallelism's layout, no process group)
+    # it computes what the fused encoder does
+    partitioned = _encoder(weight_tie_layers=True, partition_attention=True)
+    partitioned.load_state_dict(encoder.state_dict(), strict=True)
+    partitioned.partition(0, 1)
+    assert isinstance(partitioned.layers[0][1].fn, ShardedFeedForward)
+    with torch.no_grad():
+        np.testing.assert_allclose(partitioned(torch.from_numpy(data)).numpy(), actual, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("case", STEP_CASES)
@@ -373,6 +379,16 @@ def test_seeded_init_draws_every_parameter():
     assert float(a["perceiver.latents"].std()) > 0.5  # standard normal, not a small init
 
 
+@pytest.mark.parametrize("cls", [PerceiverModel, NwpSat, Conv3dNwpSat])
+def test_models_pass_partition_attention_on(cls):
+    """Each perceiver model hands ``partition_attention`` to its encoder, as
+    the JAX models do; the encoder stays unpartitioned until a trainer (or
+    a caller) partitions it."""
+    model = cls(**TINY, **PV, partition_attention=True)
+    assert model.perceiver.partition_attention and isinstance(model.perceiver.layers[0][1].fn, FeedForward)
+    assert not cls(**TINY, **PV).perceiver.partition_attention
+
+
 def test_registry_and_experiments(tmp_cwd):
     for name, cls in (("perceiver", PerceiverModel), ("perceiver_nwp_sat", NwpSat),
                       ("perceiver_conv3d_nwp_sat", Conv3dNwpSat)):
@@ -389,7 +405,8 @@ def test_registry_and_experiments(tmp_cwd):
         "datamodule.n_val_data=1", "datamodule.num_workers=0", "trainer.max_epochs=1", "model.batch_size=2",
         "model.num_latents=4", "model.latent_dim=8", "+trainer.device=cpu", "+optimized_metric=MSE/Validation_epoch"]))
     assert metric is not None and np.isfinite(metric)
-    with pytest.raises(NotImplementedError, match="ROADMAP M14"):
+    # model_parallel 2 does not fit one process (tests/test_torch_tensor_parallel.py trains it on two)
+    with pytest.raises(ValueError, match="does not fit"):
         train(compose("config", ["experiment=perceiver_tp", "datamodule.fake_data=true", "+trainer.device=cpu"]))
 
 
