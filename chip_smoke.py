@@ -5,7 +5,8 @@ formats (NetCDF, blosc/LZ4, remote stores, the prepare step), the
 Trainer's knobs (CUDA graphs of k steps, lr_find, the float16 wire,
 overfit/reload, loggers, plots, debug_nans, the device trace), the flow
 forecaster's training with the flow bench, and several ranks (data and
-tensor parallelism, the sharded flow).
+tensor parallelism, the sharded flow), and the JAX package's orbax
+checkpoints read natively, resumed and served, with the rest of the tooling.
 
     python3 chip_smoke.py
 
@@ -74,7 +75,9 @@ Phases (any failure exits non-zero):
      of the composed ``experiment=perceiver`` config and (d) the JAX
      package's perceiver learning gate on the card (16 epochs, lr 1e-3, the
      best validation epoch < 0.85 × phase 8's persistence baseline on the
-     same archive);
+     same archive), under deterministic algorithms, so that each run trains
+     the same trajectory; it trains in a process of its own while phase 1
+     builds the kernels;
  10. the zoo and bf16: (a) each of ``configs/model/conv3d.yaml``,
      ``conv3d_nwp.yaml``, ``cnn_concat_timesteps.yaml`` and ``cnn_rnn.yaml``
      (literal copies below) at batch 32 in fp32 on fake data of its
@@ -114,8 +117,9 @@ Phases (any failure exits non-zero):
      archive with blosc-lz4 + shuffle satellite imagery: the loader alone
      at 2 and 8 threads and one thread's share in decompression beside 8
      (a)'s zlib numbers, and its channel statistics; (h) without h5py an
-     HDF5 file, without zstandard a blosc-zstd frame, raises naming the
-     package (with them: an HDF5 and a zstd round trip);
+     HDF5 file raises naming the package, a blosc-zstd frame decodes
+     natively and without zstandard writing one raises naming it (with
+     them: an HDF5 and a zstd round trip);
  12. the Trainer's knobs at full width: (a) ``steps_per_execution`` 8 as one
      CUDA graph of 8 train steps for conv3d_sat_nwp.yaml at batch 32 on
      phase 7's batches in fp32 and bf16 and perceiver.yaml at batch 8 in
@@ -149,7 +153,9 @@ Phases (any failure exits non-zero):
      ``Conv2dAEForecaster(32)``, ``MaxPoolAEForecaster(32)``,
      ``PureConv3dForecaster(128)``) at batch 4, card against CPU from the
      same seed-0 weights on one seeded batch, under phase 7's one-step rules
-     (ReLU ties included) but with the parameters after Adam within 5e-5
+     (ReLU ties included, and max-pool choices: the CPU step takes the
+     card's argmax of each window, which may differ from its own only in a
+     tied window) but with the parameters after Adam within 5e-5
      (bar the elements whose gradient the measured card-vs-CPU gap could
      carry across zero, counted),
      and the step lowering the loss; (b) the JAX
@@ -192,16 +198,35 @@ Phases (any failure exits non-zero):
      package's TP tolerances), ``flow_sequence_sharded`` within 1e-5 px of
      ``flow_sequence`` with ``sep_blur`` launching on both ranks. World size
      1 and two ranks sharing one card measure no scaling;
- 15. the ``kernels`` line, then the result line.
+ 15. the JAX package's checkpoints and the tooling: (a) every zstd frame
+     of the two committed orbax fixtures (``testdata/orbax``) through the
+     native decoder, each leaf's hash against ``expected.json``, the
+     decoder's MB/s; (b) fixture (a) (conv3d_sat_nwp, accumulation and clip,
+     mid-epoch) resumed by the port's ``Trainer`` for 2 steps on the card
+     against the CPU (phase 7's one-step limits), and resume bit-exact on
+     the card under deterministic algorithms: a 4-step fit against 2 steps,
+     ``last``, resume and 2 steps, and fixture (a) resumed twice; (c)
+     ``predict.main --checkpoint`` on fixture (a), card vs CPU ≤ 1e-4 ·
+     max |y|; (d) ``serve_bench``, a short ``pipeline_bench`` (end to end
+     and host alone) and ``mfu_probe`` (towers, step, the perceiver at
+     24×24, batch 32) at full width, their JSON lines; (e) ``run.py -m``
+     with 2 trials at a small width; (f) ``fake_batch_on_device`` at the
+     flagship's configuration;
+ 16. the ``kernels`` line, then the result line.
 
 The kernel launch counters are zeroed just before each drive of the main
 path (phases 3, 4, 13 (b), 14's world-1 flow and each of 14 (d)'s ranks)
 and read just after; the serve, train, data,
-perceiver, zoo, formats and Trainer paths run no hand kernel (the JAX
+perceiver, zoo, formats, Trainer and checkpoint paths run no hand kernel (the JAX
 package computes them with XLA, outside any Pallas kernel; attention is
 PyTorch's ``scaled_dot_product_attention``; the LZ4 codec is host code; a
 CUDA graph replays the kernels it captured), and their phases check that
 ``sep_blur`` launched 0 times.
+Every busy share of a traced fit (7 (b), 8 (a) and (b), 10, 11 (b), 12
+(a), 13 (b)) is taken after a warm-up fit in the profiler session's
+warm-up step and held to ``TRACE_COVERAGE`` against a second trace of the
+same work: a session opened after others loses its first records of
+kernels loaded since, which would read as idle time.
 Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -209,6 +234,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -218,15 +244,8 @@ import time
 import numpy as np
 import torch
 
-# (bytes/s, fp32 non-tensor flop/s, bf16 dense tensor flop/s), NVIDIA data
-# sheets (dense rates: the sheets' bf16 figures with sparsity, halved); the
-# first name that occurs in torch.cuda.get_device_name() wins
-PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100", 3.35e12, 67e12, 989e12),  # SXM5
-    ("H200", 4.8e12, 67e12, 989e12),
-)
+from predict_pv_yield_tpu_torch.flops import layer_macs as _layer_macs, peaks
+from predict_pv_yield_tpu_torch.flops import perceiver_macs as _perceiver_macs
 
 FRAMES, SIDE = 49, 256  # the headline super batch (tools/flow_bench.py:30-37)
 PRODUCTION = (704, 548)  # the full-extent nb13 HRV window (tools/flow_bench.py:101-119)
@@ -342,7 +361,9 @@ PERCEIVERS = {
 PERCEIVER_PARITY_BATCH = 1
 PERCEIVER_TRAIN_OVERRIDES = ["experiment=perceiver"] + TRAIN_OVERRIDES[1:]
 PERCEIVER_TRAIN_CONFIG = {**TRAIN_CONFIG, "model": PERCEIVERS["perceiver"]}
-PERCEIVER_GATE_EPOCHS, PERCEIVER_GATE_LR = 16, 1e-3  # tests/test_learning_gate.py:107-119
+# the same sums of at most 12 fp32 upstream gradients in another order,
+# relative to the largest gradient
+POOL_GRAD_TOL = 1e-5
 PERCEIVER_TRACED_CALLS = 3  # forwards and train steps per profiler trace
 
 #: phase 10: the rest of the zoo's model YAMLs as literals
@@ -455,13 +476,6 @@ BENCH_READINGS = 3  # bench headlines, each between two readings of phase 3's ra
 
 def log(message: str) -> None:
     print(message, flush=True)
-
-
-def peaks(name: str):
-    for key, bandwidth, flops, bf16_flops in PEAKS:
-        if key in name:
-            return key, bandwidth, flops, bf16_flops
-    raise RuntimeError(f"no peak rates known for {name!r}")
 
 
 def _warm_session():
@@ -790,32 +804,33 @@ def phase_production(device):
     return rate
 
 
-def _busy_share(fn, warm: bool = True, attempts: int = 3):
-    """(share of the wall time the device is busy, wall seconds) of one
-    traced call (after a warm-up call in the session's warm-up step,
-    :func:`_warm_session`, unless ``warm`` is False): the union of the
-    kernel and copy intervals the profiler records on the card over the
-    host clock around the call. A trace without device records is taken
-    again, up to ``attempts`` times."""
+def _session_spans(fn, warm, attempts: int = 3):
+    """One traced call of ``fn`` after an unrecorded call of ``warm`` in the
+    session's warm-up step (:func:`_warm_session`) → (the card's kernel and
+    copy intervals, wall seconds of the call, the session's events). A
+    trace without device records is taken again, up to ``attempts`` times."""
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         with _warm_session() as prof:
-            if warm:
-                fn()
-                torch.cuda.synchronize()
+            warm()
+            torch.cuda.synchronize()
             prof.step()
             start = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
             prof.step()
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+        events = prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False))
         if spans:
-            break
+            return spans, wall, events
         log(f"[profiler] no device records in trace {attempt}; tracing again")
-    check(bool(spans), "the profiler recorded no device activity")
+    raise AssertionError("the profiler recorded no device activity")
+
+
+def _union_us(spans) -> float:
     busy, (lo, hi) = 0.0, spans[0]
     for start_us, end_us in spans[1:]:
         if start_us > hi:
@@ -823,8 +838,38 @@ def _busy_share(fn, warm: bool = True, attempts: int = 3):
             lo, hi = start_us, end_us
         else:
             hi = max(hi, end_us)
-    busy += hi - lo
-    return busy / (wall * 1e6), wall
+    return busy + hi - lo
+
+
+def _hold_to_coverage(spans, replica, warm, what):
+    """A traced call that cannot be timed by CUDA events alone (a fit, idle
+    between its steps) is held to ``TRACE_COVERAGE`` against ``replica``,
+    the same work traced in a second session after the same warm-up: the
+    device time the first trace recorded must reach 90 % of the second's,
+    else the first lost records."""
+    again, _, _ = _session_spans(replica, warm)
+    recorded, reference = sum(e - s for s, e in spans), sum(e - s for s, e in again)
+    log(f"[profiler] {what}: the trace recorded {recorded / 1e3:.3f} ms of device time, a second trace of the same "
+        f"work {reference / 1e3:.3f} ms ({recorded / reference:.1%}, limit {TRACE_COVERAGE:.0%})")
+    check(recorded >= TRACE_COVERAGE * reference, f"{what}: the busy share's trace lost records")
+
+
+def _busy_share(fn, warm=True, replica=None, what="traced call"):
+    """(share of the wall time the device is busy, wall seconds) of one
+    traced call after a warm-up call in the session's warm-up step
+    (:func:`_warm_session`): ``fn`` itself, or the callable ``warm`` (a fit,
+    which runs once, warms with a short fit of another trainer on the same
+    data, so that every kernel the fit loads takes the session's record
+    loss before the traced call). The busy share is the union of the kernel
+    and copy intervals the profiler records on the card over the host clock
+    around the call. With ``replica`` (the same work again, e.g. the same
+    fit on a fresh trainer) the trace is held to ``TRACE_COVERAGE``
+    (:func:`_hold_to_coverage`)."""
+    warm = fn if warm is True else warm
+    spans, wall, _ = _session_spans(fn, warm)
+    if replica is not None:
+        _hold_to_coverage(spans, replica, warm, what)
+    return _union_us(spans) / (wall * 1e6), wall
 
 
 def _serve_cli(device, tmp):
@@ -1294,12 +1339,15 @@ def phase_train(device, bandwidth, flops_peak):
             del trainer, resumed, live, loaded, saved, moments
 
             # busy share of a traced fit of 8 steps (set-up outside the trace)
-            traced = Trainer(max_epochs=1, device=device, profiler=None)
-            traced.setup(Model(**config))
+            traced, warmup, replica = (Trainer(max_epochs=1, device=device, profiler=None) for _ in range(3))
+            for t in (traced, warmup, replica):
+                t.setup(Model(**config))
             busy, wall = _busy_share(lambda: traced.fit(traced._model, train_dataloaders=train_batches[:8]),
-                                     warm=False)
+                                     warm=lambda: warmup.fit(warmup._model, train_dataloaders=train_batches[:2]),
+                                     replica=lambda: replica.fit(replica._model, train_dataloaders=train_batches[:8]),
+                                     what="[train] the 8-step fit")
             log(f"[train] device busy {busy:.1%} of a traced 8-step fit ({wall * 1e3:.3f} ms)")
-            del traced
+            del traced, warmup, replica
 
             # (d) the pipeline on the literal composed config
             os.makedirs(f"{tmp}/pipeline")
@@ -1486,9 +1534,12 @@ def _data_stream(device, tmp, cached):
         f"validation NMAE {nmae:.6f}")
     del trainer
 
-    traced = _data_model(device, dm.configuration)
+    traced, warmup, replica = (_data_model(device, dm.configuration) for _ in range(3))
     short = datamodule(STREAM_WORKERS[0], n_train=8, n_val=1)
-    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=short), warm=False)
+    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=short), warm=lambda: warmup.fit(
+        warmup._model, datamodule=datamodule(STREAM_WORKERS[0], n_train=2, n_val=1)),
+        replica=lambda: replica.fit(replica._model, datamodule=datamodule(STREAM_WORKERS[0], n_train=8, n_val=1)),
+        what="[data] (a) the zarr-stream fit")
     log(f"[data] (a) device busy {busy:.1%} of a traced 8-step fit from the zarr stream ({wall * 1e3:.3f} ms; "
         f"cached batches, phase 7: {cached['train_busy_share']:.1%})")
     return {"stream_loader_examples_per_s_2": loader_rates[2], "stream_loader_examples_per_s_8": loader_rates[8],
@@ -1590,8 +1641,12 @@ def _data_shards(device, tmp, cached):
         f"steps {np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s (phase 7: "
         f"{cached['train_examples_per_s']:.2f})")
     del trainer
-    traced = _data_model(device, dm.configuration)
-    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=dm), warm=False)
+    traced, warmup, replica = (_data_model(device, dm.configuration) for _ in range(3))
+    warmup.max_steps = 2
+    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=dm),
+                             warm=lambda: warmup.fit(warmup._model, datamodule=dm),
+                             replica=lambda: replica.fit(replica._model, datamodule=dm),
+                             what="[data] (b) the shard fit")
     log(f"[data] (b) device busy {busy:.1%} of a traced {SHARD_TRAIN}-step fit from raw shards "
         f"({wall * 1e3:.3f} ms; phase 7: {cached['train_busy_share']:.1%})")
     return {"shard_train_step_ms": step_ms, "shard_decode_ms": decode_ms, "shard_decode_share": decode_ms / step_ms,
@@ -1647,40 +1702,6 @@ def phase_data(device, cached):
     check(blur.launches == 0, "the data path launched sep_blur")
     log(f"[data] phase 8: {time.perf_counter() - start:.2f} s")
     return results
-
-
-def _perceiver_macs(model) -> int:
-    """Multiply-accumulates of one example's forward, from the layer
-    shapes: the stems' convolutions; per frame the K/V projection of the
-    input once per distinct block, then at every depth step the latents'
-    projections, the attention products (logits and the weighted sum, per
-    head) and the feed-forwards, and the head; the frame MLP; the GRUs."""
-    encoder = model.perceiver
-    n_latents = encoder.latents.shape[0]
-    cross, cross_ff, latent = encoder.layers[0]
-    side, macs = model.image_size_pixels, 0
-    if hasattr(model, "sat_conv3d_maxpool"):
-        for stem, px, steps in ((model.sat_conv3d_maxpool, model.image_size_pixels, model.total_seq_length),
-                                (model.nwp_conv3d_maxpool, model.nwp_image_size_pixels, model.seq_lens.seq_len_60)):
-            macs += stem.conv.weight.numel() * steps * px * px
-        side = (side - 1) // 2 + 1  # the stem's stride-2 pool
-    tokens = side * side
-
-    def weights(module):
-        return sum(m.weight.numel() for m in module.modules() if isinstance(m, torch.nn.Linear))
-
-    step = n_latents * (weights(cross.fn) - cross.fn.to_kv.weight.numel()) + 2 * n_latents * tokens * (
-        cross.fn.heads * cross.fn.dim_head) + n_latents * weights(cross_ff)
-    for attn, ff in latent:
-        step += n_latents * (weights(attn) + weights(ff)) + 2 * attn.fn.heads * n_latents**2 * attn.fn.dim_head
-    distinct = len({id(layer) for layer in encoder.layers})
-    frame = distinct * tokens * cross.fn.to_kv.weight.numel() + encoder.depth * step + weights(encoder.to_logits)
-    frame += sum(getattr(model, f"fc{i}").weight.numel() for i in range(1, 6))
-    rnn_steps = ((model.history_len_5 if model.output_variable == "pv_yield" else model.history_len_30) + 1,
-                 model.forecast_len)
-    rnn = sum(steps * sum(p.numel() for n, p in gru.named_parameters() if n.startswith("weight"))
-              for steps, gru in zip(rnn_steps, (model.encoder_rnn, model.decoder_rnn)))
-    return macs + model.total_seq_length * frame + rnn + model.decoder_fc1.weight.numel() * model.forecast_len
 
 
 def _attention_precision(device):
@@ -1857,49 +1878,99 @@ def _perceiver_pipeline(device):
         f"{PERCEIVER_TRAIN_CONFIG['optimized_metric']} {metric:.6f}, best checkpoint written, {seconds:.2f} s")
 
 
-def _perceiver_gate(baseline):
+def _deterministic_pool(device):
+    """Phase 9 (d): the max-pool gradient that the gate trains with under
+    deterministic algorithms (``layers.DeterministicMaxPool3d``) against
+    ``F.max_pool3d``'s own backward on the card, at the shape of the gate's
+    satellite convolution (batch 8, 4 channels, 13 frames of 24 × 24);
+    two of its runs must be bit-equal."""
+    import torch.nn.functional as F
+
+    from predict_pv_yield_tpu_torch.models.layers import DeterministicMaxPool3d
+
+    generator = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 4, 13, 24, 24, generator=generator)
+    x[..., ::3, :] = x[..., ::3, :].round()  # ties inside overlapping windows
+    x = x.to(device)
+    upstream = torch.randn(8, 4, 13, 12, 12, generator=generator).to(device)
+
+    def gradient(pool):
+        leaf = x.clone().requires_grad_()
+        (pool(leaf) * upstream).sum().backward()
+        return leaf.grad
+
+    plain = gradient(lambda t: F.max_pool3d(t, 3, stride=(1, 2, 2), padding=1))
+    with _deterministic():
+        ours, again = gradient(DeterministicMaxPool3d.apply), gradient(DeterministicMaxPool3d.apply)
+    err, scale = (ours - plain).abs().max().item(), plain.abs().max().item()
+    log(f"[perceiver] (d) deterministic max-pool gradient vs max_pool3d's on the card: max |err| {err:.3e} "
+        f"(tol {POOL_GRAD_TOL:g} × max |g| {scale:.3f}); two runs bit-equal: {torch.equal(ours, again)}")
+    check(err <= POOL_GRAD_TOL * scale, f"deterministic max-pool gradient off by {err:.3e}")
+    check(torch.equal(ours, again), "the deterministic max-pool gradient differs between two runs")
+
+
+class _GateProcess:
+    """Phase 9 (d)'s training in a process of its own, ``python -m
+    predict_pv_yield_tpu_torch.data.synthetic --deterministic``, started
+    before phase 1 so that it trains while nvcc builds (the card is idle
+    then). Leaving the block stops the process, whatever happened."""
+
+    def __init__(self, *args):
+        self.stderr = tempfile.TemporaryFile(mode="w+")
+        self.start = time.perf_counter()
+        self.process = subprocess.Popen(
+            [sys.executable, "-m", "predict_pv_yield_tpu_torch.data.synthetic", *args],
+            cwd=pathlib.Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=self.stderr, text=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.process.poll() is None:
+            self.process.kill()
+        self.process.wait()
+        self.stderr.close()
+
+    def result(self) -> dict:
+        """Wait for the process → its JSON line, with ``seconds`` added."""
+        out, _ = self.process.communicate()
+        if self.process.returncode != 0:
+            self.stderr.seek(0)
+            check(False, f"the perceiver gate's process exited with {self.process.returncode}: "
+                         f"{self.stderr.read()[-2000:]}")
+        return {**json.loads(out.strip().splitlines()[-1]), "seconds": time.perf_counter() - self.start}
+
+
+def _perceiver_gate(baseline, run):
     """Phase 9 (d): the JAX package's perceiver learning gate on the card:
     perceiver_conv3d_sat_nwp at gate scale, 16 epochs at lr 1e-3, judged on
     its best validation epoch against the persistence ``baseline`` of the
-    same archive (phase 8 (c) wrote it from the same seed)."""
-    import contextlib
-    import csv
-    import glob
-    import io
-    import os
-    import tempfile
-
+    same archive (phase 8 (c) wrote it from the same seed; the gate's
+    process, whose ``run`` this is, computed its own, which must equal it).
+    It trains under deterministic algorithms: the card's atomics otherwise
+    move the epoch at which the model leaves its plateau from run to run,
+    and some runs had not left it by the 16th epoch."""
     from predict_pv_yield_tpu_torch.data import synthetic
 
-    start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        archive = synthetic.make_learnable_archive(os.path.join(tmp, "learnable"), n_frames=288, px=24, n_gsp=4,
-                                                   seed=0, with_nwp=True)
-        workdir = os.path.join(tmp, "gate_trained")
-        os.makedirs(workdir)
-        overrides = synthetic.perceiver_gate_overrides(archive) + [
-            f"trainer.max_epochs={PERCEIVER_GATE_EPOCHS}", f"+trainer.learning_rate={PERCEIVER_GATE_LR}"]
-        with contextlib.redirect_stdout(io.StringIO()):  # the config tree and the profiler summary
-            synthetic.run_learnable(archive, overrides, workdir=workdir)
-        scores = []
-        for path in glob.glob(os.path.join(workdir, "**", "metrics.csv"), recursive=True):
-            with open(path, newline="") as fh:
-                scores += [float(row[synthetic.GATE_METRIC]) for row in csv.DictReader(fh)
-                           if row.get(synthetic.GATE_METRIC)]
-    check(len(scores) == PERCEIVER_GATE_EPOCHS, f"{len(scores)} validation epochs")
+    scores = run["scores"]
+    check(run["deterministic"] and run["epochs"] == synthetic.PERCEIVER_GATE_EPOCHS
+          and run["learning_rate"] == synthetic.PERCEIVER_GATE_LEARNING_RATE, f"the gate ran as {run}")
+    check(len(scores) == synthetic.PERCEIVER_GATE_EPOCHS, f"{len(scores)} validation epochs")
+    check(abs(run["baseline"] - baseline) <= 1e-6 * baseline,
+          f"the gate's persistence baseline {run['baseline']} against phase 8's {baseline}")
     best = min(scores)
-    log(f"[perceiver] (d) learning gate on the card: perceiver_conv3d_sat_nwp best of {len(scores)} validation "
-        f"epochs {synthetic.GATE_METRIC} {best:.6f} (epoch {scores.index(best)}; last {scores[-1]:.6f}), persistence "
-        f"baseline {baseline:.6f}, ratio {best / baseline:.4f} (limit {GATE_MARGIN}); "
-        f"{time.perf_counter() - start:.2f} s")
+    log(f"[perceiver] (d) learning gate on the card, deterministic algorithms: perceiver_conv3d_sat_nwp best of "
+        f"{len(scores)} validation epochs {synthetic.GATE_METRIC} {best:.6f} (epoch {scores.index(best)}; last "
+        f"{scores[-1]:.6f}), persistence baseline {baseline:.6f}, ratio {best / baseline:.4f} (limit {GATE_MARGIN}); "
+        f"{run['seconds']:.2f} s in its own process during phase 1")
     check(best < GATE_MARGIN * baseline, "the trained perceiver does not beat persistence")
     return {"trained_nmae": best, "baseline_nmae": baseline}
 
 
-def phase_perceiver(device, bandwidth, flops_peak, baseline_nmae):
+def phase_perceiver(device, bandwidth, flops_peak, baseline_nmae, gate_run):
     """Phase 9: the perceiver family, serve and train at the widths of its
-    YAMLs, the pipeline and the learning gate (against ``baseline_nmae``,
-    phase 8's persistence baseline on the same archive)."""
+    YAMLs, the pipeline and the learning gate (``gate_run``, against
+    ``baseline_nmae``, phase 8's persistence baseline on the same archive)."""
     from predict_pv_yield_tpu_torch import predict as serve
     from predict_pv_yield_tpu_torch.ops import sep_blur as blur
 
@@ -1920,39 +1991,11 @@ def phase_perceiver(device, bandwidth, flops_peak, baseline_nmae):
         del unique
         torch.cuda.empty_cache()
     _perceiver_pipeline(device)
-    results["gate"] = _perceiver_gate(baseline_nmae)
+    _deterministic_pool(device)
+    results["gate"] = _perceiver_gate(baseline_nmae, gate_run)
     check(blur.launches == 0, "the perceiver path launched sep_blur")
     log(f"[perceiver] phase 9: {time.perf_counter() - start:.2f} s")
     return results
-
-
-def _layer_macs(model, batch) -> int:
-    """Multiply-accumulates of one forward of ``model`` on ``batch`` (run
-    here, without autograd), from the shapes its layers see: each conv's
-    output elements × its input channels × kernel volume, each linear's
-    rows × its weights, each GRU's steps × its input and recurrent weights."""
-    from torch import nn
-
-    macs = []
-
-    def count(module, args, out):
-        if isinstance(module, nn.GRU):
-            steps = args[0].shape[0] * args[0].shape[1]
-            macs.append(steps * sum(p.numel() for n, p in module.named_parameters() if n.startswith("weight")))
-        elif isinstance(module, nn.Linear):
-            macs.append(out.numel() // module.out_features * module.weight.numel())
-        else:
-            macs.append(out.numel() // module.out_channels * module.weight.numel())
-
-    layers = (nn.Conv2d, nn.Conv3d, nn.Linear, nn.GRU)
-    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, layers)]
-    try:
-        with torch.inference_mode():
-            model(batch)
-    finally:
-        for hook in hooks:
-            hook.remove()
-    return sum(macs)
 
 
 def _head_input(model):
@@ -2002,10 +2045,15 @@ def _fit_numbers(device, make_model, train_batches, val_batches, batch_size, pre
     check(steps == len(train_batches) and np.isfinite(trainer.callback_metrics["NMAE/Train_epoch"])
           and np.isfinite(trainer.callback_metrics["NMAE/Validation_epoch"]), "fit steps or NaN")
     del trainer
-    traced = Trainer(max_epochs=1, device=device, precision=precision, profiler=None)
-    traced.setup(make_model())
-    busy, _ = _busy_share(lambda: traced.fit(traced._model, train_dataloaders=train_batches[:8]), warm=False)
-    del traced
+    traced, warmup, replica = (Trainer(max_epochs=1, device=device, precision=precision, profiler=None)
+                               for _ in range(3))
+    for t in (traced, warmup, replica):
+        t.setup(make_model())
+    busy, _ = _busy_share(lambda: traced.fit(traced._model, train_dataloaders=train_batches[:8]),
+                          warm=lambda: warmup.fit(warmup._model, train_dataloaders=train_batches[:2]),
+                          replica=lambda: replica.fit(replica._model, train_dataloaders=train_batches[:8]),
+                          what=f"the 8-step fit of {type(traced._model).__name__} at precision {precision}")
+    del traced, warmup, replica
     return rate, float(np.median(gaps)), peak, busy
 
 
@@ -2589,10 +2637,13 @@ def _format_loader(device, tmp, tree, expected, trained):
         f"steps {np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s (cached batches, phase 7: "
         f"{trained['train_examples_per_s']:.2f})")
 
-    traced = _data_model(device, dm.configuration)
+    traced, warmup, replica = (_data_model(device, dm.configuration) for _ in range(3))
     steps = min(8, FORMAT_TRAIN)
     short = datamodule(8, n_train=steps, n_val=1)
-    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=short), warm=False)
+    busy, wall = _busy_share(lambda: traced.fit(traced._model, datamodule=short),
+                             warm=lambda: warmup.fit(warmup._model, datamodule=datamodule(8, n_train=2, n_val=1)),
+                             replica=lambda: replica.fit(replica._model, datamodule=datamodule(8, n_train=steps, n_val=1)),
+                             what="[formats] (b) the NetCDF fit")
     log(f"[formats] (b) device busy {busy:.1%} of a traced {steps}-step fit from the NetCDF tree ({wall * 1e3:.3f} ms; "
         f"cached batches, phase 7: {trained['train_busy_share']:.1%})")
     return {"netcdf_loader_examples_per_s_2": rates[2], "netcdf_loader_examples_per_s_8": rates[8],
@@ -2847,8 +2898,9 @@ def _format_lz4():
 
 def _format_packages(tmp):
     """(h) The optional packages: without h5py an HDF5 file raises naming
-    it, with h5py a v15 HDF5 batch round-trips; without zstandard a
-    blosc-zstd frame raises naming it, with it a zstd frame round-trips."""
+    it, with h5py a v15 HDF5 batch round-trips; a blosc-zstd frame decodes
+    through the native decoder, and without zstandard writing one raises
+    naming it (with it a zstd frame round-trips)."""
     import importlib.util
     import os
     import struct
@@ -2881,16 +2933,22 @@ def _format_packages(tmp):
         check(blosc.decompress(frame) == payload, "zstd round trip")
         log("[formats] (h) zstandard imports: a blosc-zstd frame round-trips")
     else:
-        stream = bytes(64)  # any payload smaller than its block is a compressed stream
+        # a zstd frame by hand (RFC 8878): single segment, 2-byte content
+        # size, a raw block of 512 bytes and a last RLE block of 512
+        raw = bytes(range(256)) * 2
+        stream = b"\x28\xb5\x2f\xfd" + bytes([0x60]) + struct.pack("<H", 1024 - 256)
+        stream += (512 << 3).to_bytes(3, "little") + raw + ((512 << 3) | (1 << 1) | 1).to_bytes(3, "little") + b"\x07"
         frame = bytes([2, 2, 4 << 5, 1]) + struct.pack("<III", 1024, 1024, 16 + 4 + 4 + len(stream))
         frame += struct.pack("<II", 20, len(stream)) + stream
+        check(blosc.decompress(frame) == raw + b"\x07" * 512, "a blosc-zstd frame through the native decoder")
         try:
-            blosc.decompress(frame)
+            blosc.compress(payload, typesize=2, cname="zstd")
             raised = None
         except ImportError as exc:
             raised = str(exc)
-        check(raised is not None and "zstandard" in raised, f"a blosc-zstd frame without zstandard: {raised}")
-        log(f"[formats] (h) zstandard missing: a blosc-zstd frame raises ImportError: {raised}")
+        check(raised is not None and "zstandard" in raised, f"writing a blosc-zstd frame without zstandard: {raised}")
+        log(f"[formats] (h) zstandard missing: a blosc-zstd frame decodes natively; writing one raises "
+            f"ImportError: {raised}")
     return {"packages": found}
 
 
@@ -2953,39 +3011,19 @@ def _marked_fit(trainer, batch_size, **fit_kwargs):
     return seconds, len(marks) * k, rate, len(gaps), torch.cat(losses).float().cpu()
 
 
-def _traced(fn):
-    """One traced call of ``fn`` → (busy share, wall seconds, host kernel
-    and graph launches, device kernel records): the union of the kernel and
-    copy intervals on the card over the host clock around the call, and the
-    runtime's launch calls on the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(1, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-            start = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - start
-        events = prof.events()
-        spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False))
-        if spans:
-            break
-        log(f"[profiler] no device records in trace {attempt}; tracing again")
-    check(bool(spans), "the profiler recorded no device activity")
-    busy, (lo, hi) = 0.0, spans[0]
-    for start_us, end_us in spans[1:]:
-        if start_us > hi:
-            busy += hi - lo
-            lo, hi = start_us, end_us
-        else:
-            hi = max(hi, end_us)
-    busy += hi - lo
+def _traced(fn, what):
+    """One traced call of ``fn`` after an unrecorded warm-up call of it in
+    the session's warm-up step (:func:`_warm_session`), held to
+    ``TRACE_COVERAGE`` against a third call of it (:func:`_hold_to_coverage`)
+    → (busy share, wall seconds, host kernel and graph launches, device
+    kernel records): the union of the kernel and copy intervals on the card
+    over the host clock around the call, and the runtime's launch calls on
+    the host."""
+    spans, wall, events = _session_spans(fn, fn)
+    _hold_to_coverage(spans, fn, fn, what)
     launches = sum(1 for e in events if e.name in LAUNCH_NAMES)
     graphs = sum(1 for e in events if "GraphLaunch" in e.name)
-    return busy / (wall * 1e6), wall, launches, graphs, len(spans)
+    return _union_us(spans) / (wall * 1e6), wall, launches, graphs, len(spans)
 
 
 def _state_diff(a, b):
@@ -3007,20 +3045,12 @@ def _adam_updates(trainer):
     return sorted({int(state["step"]) for state in trainer.state["optimizer"]["state"].values()})
 
 
-@contextlib.contextmanager
 def _deterministic():
-    """cuDNN and PyTorch held to deterministic algorithms inside the block:
-    flash attention's backward takes its deterministic algorithm, and an op
-    without one raises."""
-    cudnn = torch.backends.cudnn
-    before = torch.are_deterministic_algorithms_enabled(), cudnn.deterministic, cudnn.benchmark
-    torch.use_deterministic_algorithms(True)
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(before[0])
-        cudnn.deterministic, cudnn.benchmark = before[1], before[2]
+    """``utils.deterministic_algorithms()``: deterministic algorithms inside
+    the block."""
+    from predict_pv_yield_tpu_torch.utils import deterministic_algorithms
+
+    return deterministic_algorithms()
 
 
 def _rotated(unique, steps):
@@ -3133,7 +3163,7 @@ def _graph_cell(device, label, make_model, unique, batch_size, precision=32, acc
         check(_adam_updates(fits[1]) == _adam_updates(fits[GRAPH_K]), f"{label}: Adam's step counts differ")
         for k, trainer in fits.items():
             busy, wall, launches, graphs, records = _traced(
-                lambda: trainer.fit(trainer._model, train_dataloaders=unique[:GRAPH_K]))
+                lambda: trainer.fit(trainer._model, train_dataloaders=unique[:GRAPH_K]), f"{label}, k={k} fit")
             numbers[k].update(busy=busy, launches=launches / GRAPH_K, graph_launches=graphs)
         log(f"[trainer] (a) {label}: {GRAPH_TRAIN} steps, default algorithms: steady train examples/s k=1 "
             f"{numbers[1]['rate']:.2f} (median of {numbers[1]['gaps']} step gaps), k={GRAPH_K} "
@@ -3481,11 +3511,48 @@ def phase_trainer(device, tree):
     return results
 
 
+@contextlib.contextmanager
+def _recorded_maxpools(decide=None):
+    """Inside the block, each ``F.max_pool2d`` call records its choices (the
+    argmax of each window) and ties on the host into the yielded
+    ``(indices, ties)`` lists: a tie is a window whose two largest inputs
+    lie within ``RELU_TIE`` × the call's largest |input| of each other. With
+    ``decide`` (another run's indices, call by call) each window takes the
+    input those indices name instead of its own largest: the gradient then
+    flows to the same elements as in that run."""
+    import torch.nn.functional as F
+
+    pool, indices, ties = F.max_pool2d, [], []
+
+    def recording_pool(x, kernel_size, stride=None, padding=0, dilation=1, ceil_mode=False, return_indices=False):
+        check(padding == 0 and dilation == 1 and not ceil_mode and not return_indices, "an unrecorded max-pool form")
+        out, chosen = pool(x, kernel_size, stride, return_indices=True)
+        n, c, h, w = x.shape
+        patches = F.unfold(x.detach().reshape(n * c, 1, h, w), kernel_size, stride=stride or kernel_size)
+        top = patches.topk(2, dim=1).values
+        gap = (top[:, 0] - top[:, 1]) / x.detach().abs().max().clamp_min(torch.finfo(x.dtype).tiny)
+        ties.append(torch.where(gap <= RELU_TIE, gap, -1.0).reshape(out.shape).cpu())
+        indices.append(chosen.cpu())
+        if decide is None:
+            return out
+        taken = decide[len(indices) - 1].to(x.device)
+        return x.flatten(2).gather(2, taken.flatten(2)).reshape(out.shape)
+
+    F.max_pool2d = recording_pool
+    try:
+        yield indices, ties
+    finally:
+        F.max_pool2d = pool
+
+
 def _flow_step(make_model, batch, where, decide=None, mkldnn=True):
     """One ``train_flow_forecaster.train_step`` (Adam, lr 1e-4) of a fresh
-    seed-0 model on ``where`` with its ``torch.relu`` calls recorded
-    (:func:`_recorded_relus`) → (loss, gradients, parameters after the step,
-    decisions, ties, the model, the batch on ``where``)."""
+    seed-0 model on ``where`` with its ``torch.relu`` and ``F.max_pool2d``
+    calls recorded (:func:`_recorded_relus`, :func:`_recorded_maxpools`;
+    ``decide`` holds another run's ReLU decisions and max-pool choices) →
+    (loss, gradients, parameters after the step, (ReLU decisions, max-pool
+    indices), (ReLU ties, max-pool ties), the model, the batch on
+    ``where``)."""
     from predict_pv_yield_tpu_torch.train_flow_forecaster import train_step
 
     model = make_model().to(where)
@@ -3493,13 +3560,14 @@ def _flow_step(make_model, batch, where, decide=None, mkldnn=True):
     batch = {k: v.to(where) for k, v in batch.items()}
     torch.backends.mkldnn.enabled = mkldnn
     try:
-        with _recorded_relus(torch, decide) as (decisions, ties):
+        relus, pools = decide if decide is not None else (None, None)
+        with _recorded_relus(torch, relus) as (decisions, ties), _recorded_maxpools(pools) as (chosen, pool_ties):
             loss = float(train_step(model, optimizer, batch))
     finally:
         torch.backends.mkldnn.enabled = True
     grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
     params = {k: v.cpu() for k, v in model.state_dict().items()}
-    return loss, grads, params, decisions, ties, model, batch
+    return loss, grads, params, (decisions, chosen), (ties, pool_ties), model, batch
 
 
 def _flow_parity(device, arch):
@@ -3545,10 +3613,16 @@ def _flow_parity(device, arch):
     cpu_loss, own, _, decisions, ties, _, _ = _flow_step(make_model, batch, "cpu")
     native = _flow_step(make_model, batch, "cpu", mkldnn=False)[1]
     _, cpu_grads, cpu_params, *_ = _flow_step(make_model, batch, "cpu", decide=card_decisions)
-    flips = [a != b for a, b in zip(decisions, card_decisions)]
+    flips = [a != b for a, b in zip(decisions[0], card_decisions[0])]
     n_flips = sum(int(f.sum()) for f in flips)
-    check(all(not (f & (t < 0)).any() for f, t in zip(flips, ties)),
+    check(all(not (f & (t < 0)).any() for f, t in zip(flips, ties[0])),
           f"{arch}: the card and the CPU decide a ReLU input that is not a tie differently")
+    # max-pool choices: the card's and the CPU's argmax differ only in tied windows
+    moved = [a != b for a, b in zip(decisions[1], card_decisions[1])]
+    n_moved = sum(int(m.sum()) for m in moved)
+    n_pool_ties = sum(int((t >= 0).sum()) for t in ties[1])
+    check(all(not (m & (t < 0)).any() for m, t in zip(moved, ties[1])),
+          f"{arch}: the card and the CPU pick a max-pool window's maximum differently where it is not a tie")
     loss_err = abs(card_loss - cpu_loss)
     grad_errs = _rel_errs(card_grads.values(), cpu_grads.values())
     spread = _rel_errs(native.values(), own.values())
@@ -3562,7 +3636,8 @@ def _flow_parity(device, arch):
     n_params = sum(v.numel() for v in cpu_params.values())
     log(f"[flow-train] (a) {arch} ({n_params:,} parameters) one step at batch {n}, card vs CPU: MSE {card_loss:.7f} "
         f"vs {cpu_loss:.7f} (|Δ| {loss_err:.3e}, limit {STEP_LOSS_TOL}); gradients max |Δ| / max |g| "
-        f"{max(grad_errs):.3e} on the card's ReLU decisions ({n_flips} ties decided the other way), the CPU's "
+        f"{max(grad_errs):.3e} on the card's ReLU decisions ({n_flips} ties decided the other way) and max-pool "
+        f"choices ({n_moved} of {n_pool_ties} tied windows chosen the other way), the CPU's "
         f"own spread {max(spread):.3e}, limit {grad_tol:.3e}; parameters after Adam max |Δ| {param_err:.3e} "
         f"(limit {FLOW_PARAM_TOL}) over the {n_params - n_exempt:,} of {n_params:,} whose gradient is not within "
         f"twice the measured gap of zero, {exempt_err:.3e} over those {n_exempt:,}; the card's MSE after the step "
@@ -3573,7 +3648,8 @@ def _flow_parity(device, arch):
     check(param_err <= FLOW_PARAM_TOL, f"{arch}: the card's Adam step disagrees with the CPU's")
     check(after < card_loss, f"{arch}: one step did not lower the loss ({card_loss} → {after})")
     return {"loss_err": loss_err, "grad_rel_err": max(grad_errs), "cpu_grad_spread": max(spread),
-            "relu_flips": n_flips, "param_err": param_err, "params_exempt": n_exempt, "exempt_err": exempt_err,
+            "relu_flips": n_flips, "pool_moves": n_moved, "pool_ties": n_pool_ties, "param_err": param_err,
+            "params_exempt": n_exempt, "exempt_err": exempt_err,
             "loss_before": card_loss, "loss_after": after}
 
 
@@ -3708,7 +3784,10 @@ def _flow_fit(device, tmp, flops_peak):
           f"{FLOW_SUPER_BATCHES} super batches")
     check(all(np.isfinite(v) and -1 <= v <= 1 for v in scores.values()), f"SSIM {scores}")
 
-    busy, wall = _busy_share(lambda: tff.train(model, refreshed, FLOW_TRACED_STEPS, FLOW_LR), warm=False)
+    busy, wall = _busy_share(lambda: tff.train(model, refreshed, FLOW_TRACED_STEPS, FLOW_LR),
+                             warm=lambda: tff.train(model, refreshed, 2, FLOW_LR),
+                             replica=lambda: tff.train(model, refreshed, FLOW_TRACED_STEPS, FLOW_LR),
+                             what="[flow-train] (b) the 20-step window")
     batch = next(iter(refreshed))
     optimizer = torch.optim.Adam(model.parameters(), lr=FLOW_LR)
     step_ms, evented_ms, events = _traced_step_ms(lambda: tff.train_step(model, optimizer, batch))
@@ -4187,6 +4266,329 @@ def phase_parallel(device, frames, trainer_results):
     return results
 
 
+#: phase 15 runs in a temporary directory: paths of the checkout are absolute
+REPO_ROOT = str(pathlib.Path(__file__).resolve().parent)
+#: the JAX package's committed orbax checkpoints (tests/test_torch_orbax.py writes them)
+ORBAX_FIXTURES = f"{REPO_ROOT}/predict_pv_yield_tpu_torch/testdata/orbax"
+#: fixture (a)'s model (its model.yaml) and the trainer knobs it was written with
+FIXTURE_KNOBS = dict(max_epochs=1, val_check_interval=3, accumulate_grad_batches=2, gradient_clip_val=0.5,
+                     limit_val_batches=1)
+ZSTD_REPEATS = 5  # the decoder's rate: every frame of both fixtures, decoded this many times
+SWEEP_OVERRIDES = [
+    "-m", "hparams_search=conv3d_optuna", "experiment=conv3d_sat_nwp", "logger=csv", "datamodule.fake_data=true",
+    "datamodule.n_train_data=2", "datamodule.n_val_data=1", "trainer.max_epochs=1", "model.image_size_pixels=16",
+    "model.number_sat_channels=1", "model.history_minutes=60", "model.forecast_minutes=30",
+    "model.number_of_conv3d_layers=2", "model.include_nwp=false", "sweep.n_trials=2",
+]
+
+
+def _fixture_model():
+    """Fixture (a)'s conv3d_sat_nwp, at the widths of its ``model.yaml``."""
+    import os
+
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.predict import load_model_config
+
+    config = load_model_config(os.path.join(ORBAX_FIXTURES, "conv3d_sat_nwp", "model.yaml"))
+    config.pop("_target_", None)
+    return Model(**config)
+
+
+def _fixture_dataset(length=6):
+    """The batches fixture (a) was trained on: ``FakeDataset`` of the
+    tests/configs/dataset_small configuration, as the JAX package draws them."""
+    from predict_pv_yield_tpu_torch.config.dataset import load_yaml_configuration
+    from predict_pv_yield_tpu_torch.data.fake import FakeDataset
+
+    return FakeDataset(configuration=load_yaml_configuration(
+        f"{REPO_ROOT}/tests/configs/dataset_small/configuration.yaml"), length=length)
+
+
+def _orbax_zstd():
+    """(a) Every zstd frame of both fixtures through the native decoder; the
+    leaves' hashes against ``expected.json``; the decoder's MB/s."""
+    import hashlib
+    import os
+
+    from predict_pv_yield_tpu_torch import native
+    from predict_pv_yield_tpu_torch.training.orbax import read_ocdbt, read_train_state
+
+    results = {}
+    frames = []
+    for name in ("conv3d_sat_nwp", "perceiver_tp"):
+        directory = os.path.join(ORBAX_FIXTURES, name, "last")
+        kv = read_ocdbt(directory)
+        chunks = [value for key, value in kv.items() if not key.endswith((".zarray", ".zattrs"))]
+        check(all(value[:4] == b"\x28\xb5\x2f\xfd" for value in chunks), f"{name}: a chunk is no zstd frame")
+        frames += chunks
+        with open(os.path.join(ORBAX_FIXTURES, name, "expected.json")) as fh:
+            expected = json.load(fh)
+
+        def leaves(tree, prefix=()):
+            for key, value in tree.items():
+                if isinstance(value, dict):
+                    yield from leaves(value, prefix + (key,))
+                else:
+                    yield ".".join(prefix + (key,)), value
+
+        got = {}
+        for leaf, value in leaves(read_train_state(directory)):
+            bits = value.view(torch.int16).numpy() if isinstance(value, torch.Tensor) else np.ascontiguousarray(value)
+            got[leaf] = {"shape": list(bits.shape),
+                         "dtype": "bfloat16" if isinstance(value, torch.Tensor) else bits.dtype.name,
+                         "sha256": hashlib.sha256(bits.tobytes()).hexdigest()}
+        check(got == expected, f"{name}: the leaves read natively differ from expected.json")
+        results[f"{name}_leaves"] = len(got)
+    total = sum(len(native.zstd_decompress(frame)) for frame in frames)
+    start = time.perf_counter()
+    for _ in range(ZSTD_REPEATS):
+        for frame in frames:
+            native.zstd_decompress(frame)
+    seconds = time.perf_counter() - start
+    results.update(zstd_frames=len(frames), zstd_bytes=total, zstd_mb_per_s=ZSTD_REPEATS * total / seconds / 1e6)
+    log(f"[orbax] (a) {len(frames)} zstd chunk frames of both fixtures ({total / 1e6:.3f} MB) decoded natively; "
+        f"{results['conv3d_sat_nwp_leaves']} + {results['perceiver_tp_leaves']} leaves equal expected.json; "
+        f"decoder {results['zstd_mb_per_s']:.2f} MB/s on the card's host (one core, {ZSTD_REPEATS} passes)")
+    return results
+
+
+def _resumed_fit(where, checkpoint, tmp, tag, max_steps=5, dataset=None):
+    """The port's ``Trainer`` resumed from ``checkpoint`` on ``where`` to
+    ``max_steps`` with fixture (a)'s knobs → (trainer, logged rows)."""
+    from predict_pv_yield_tpu_torch.training.callbacks import ModelCheckpoint
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+    from predict_pv_yield_tpu_torch.training.loggers import CSVLogger
+
+    logger = CSVLogger(save_dir=f"{tmp}/{tag}")
+    trainer = Trainer(device=where, profiler=None, weights_summary=None, logger=logger, max_steps=max_steps,
+                      resume_from_checkpoint=checkpoint, **FIXTURE_KNOBS,
+                      callbacks=[ModelCheckpoint(dirpath=f"{tmp}/{tag}_ck", save_top_k=0)])
+    dataset = dataset if dataset is not None else _fixture_dataset()
+    trainer.fit(_fixture_model(), train_dataloaders=dataset, val_dataloaders=dataset)
+    return trainer, logger._rows
+
+
+def _states_equal(a, b) -> bool:
+    sa, sb = a.state, b.state
+    if sa["model"].keys() != sb["model"].keys():
+        return False
+    same = all(torch.equal(sa["model"][k].cpu(), sb["model"][k].cpu()) for k in sa["model"])
+    for x, y in zip(sa["optimizer"]["state"].values(), sb["optimizer"]["state"].values()):
+        same &= all(torch.equal(x[k].cpu(), y[k].cpu()) for k in ("step", "exp_avg", "exp_avg_sq"))
+    if sa["accumulation"] is not None:
+        same &= sa["accumulation"]["mini_step"] == sb["accumulation"]["mini_step"] and all(
+            torch.equal(g.cpu(), h.cpu()) for g, h in zip(sa["accumulation"]["grads"], sb["accumulation"]["grads"]))
+    return bool(same)
+
+
+def _orbax_resume(device, tmp):
+    """(b) fixture (a) resumed for 2 steps on the card against the CPU
+    under phase 7's one-step rules; the open check of bit-exact resume on
+    the card, under strict deterministic algorithms."""
+    import os
+
+    checkpoint = os.path.join(ORBAX_FIXTURES, "conv3d_sat_nwp", "last")
+    with open(os.path.join(checkpoint, "loop.json")) as fh:
+        loop = json.load(fh)
+    card, card_rows = _resumed_fit(device, checkpoint, tmp, "card")
+    cpu, cpu_rows = _resumed_fit("cpu", checkpoint, tmp, "cpu")
+    check(card.global_step == cpu.global_step == loop["global_step"] + 2, "resumed step counts")
+    check([sorted(r) for r in card_rows] == [sorted(r) for r in cpu_rows], "resumed metric rows differ in keys")
+    loss_err = max(abs(float(a[k]) - float(b[k])) for a, b in zip(card_rows, cpu_rows) for k in a
+                   if k not in ("step", "epoch"))
+    param_err = max(float((card._model.state_dict()[k].cpu() - v).abs().max())
+                    for k, v in cpu._model.state_dict().items())
+    log(f"[orbax] (b) fixture (a) (global_step {loop['global_step']}, mid-epoch, MultiSteps at mini-step 1, clip "
+        f"0.5) resumed for 2 steps, card vs CPU: metric rows max |Δ| {loss_err:.3e} (limit {STEP_LOSS_TOL}), "
+        f"parameters max |Δ| {param_err:.3e} (limit {STEP_PARAM_TOL})")
+    check(loss_err <= STEP_LOSS_TOL, "resumed metrics: card vs CPU")
+    check(param_err <= STEP_PARAM_TOL, "resumed parameters: card vs CPU")
+    results = {"resume_loss_err": loss_err, "resume_param_err": param_err}
+
+    from predict_pv_yield_tpu_torch.training.callbacks import ModelCheckpoint
+    from predict_pv_yield_tpu_torch.training.engine import Trainer
+
+    with _deterministic():
+        # a port state.pt: 4 steps against 2 + `last` + resume + 2
+        dataset = _fixture_dataset(4)
+        knobs = dict(max_epochs=1, val_check_interval=2, limit_val_batches=1, accumulate_grad_batches=2,
+                     gradient_clip_val=0.5)
+
+        def fit(tag, max_steps=None, resume=None):
+            trainer = Trainer(device=device, profiler=None, weights_summary=None, max_steps=max_steps,
+                              resume_from_checkpoint=resume, callbacks=[
+                                  ModelCheckpoint(dirpath=f"{tmp}/{tag}", save_top_k=0)], **knobs)
+            trainer.fit(_fixture_model(), train_dataloaders=dataset, val_dataloaders=dataset)
+            return trainer
+
+        whole = fit("whole")
+        fit("part", max_steps=2)
+        resumed = fit("resumed", resume=f"{tmp}/part/last")
+        check(whole.global_step == resumed.global_step == 4, "the state.pt fits' step counts")
+        port_equal = _states_equal(whole, resumed)
+        # fixture (a), resumed on the card twice from the same files
+        first, _ = _resumed_fit(device, checkpoint, tmp, "det1")
+        second, _ = _resumed_fit(device, checkpoint, tmp, "det2")
+        fixture_equal = _states_equal(first, second)
+    log(f"[orbax] (b) bit-exact resume on the card under deterministic algorithms: a port state.pt (4 steps against "
+        f"2 + last + resume + 2): {'bit-equal' if port_equal else 'NOT bit-equal'}; fixture (a) resumed twice: "
+        f"{'bit-equal' if fixture_equal else 'NOT bit-equal'} (parameters, Adam moments and steps, accumulation)")
+    check(port_equal and fixture_equal, "resume on the card is not bit-exact")
+    results.update(resume_bit_exact_state_pt=port_equal, resume_bit_exact_fixture=fixture_equal)
+    return results
+
+
+def _orbax_serve(tmp):
+    """(c) ``predict.main --checkpoint`` on fixture (a), card against CPU."""
+    import os
+
+    from predict_pv_yield_tpu_torch import predict
+
+    directory = os.path.join(ORBAX_FIXTURES, "conv3d_sat_nwp")
+    outputs = {}
+    for where in ("cuda", "cpu"):
+        outputs[where] = predict.main(["--model", "conv3d_sat_nwp", "--model-config", f"{directory}/model.yaml",
+                                       "--checkpoint", f"{directory}/last", "--n-batches", "2", "--out",
+                                       f"{tmp}/{where}.csv", "--device", where])
+    card, cpu = (np.concatenate(outputs[w]["predictions"]) for w in ("cuda", "cpu"))
+    err, scale = float(np.abs(card - cpu).max()), float(np.abs(cpu).max())
+    log(f"[orbax] (c) predict.main --checkpoint <orbax dir>: {outputs['cuda']['rows']} rows, card vs CPU max |Δ| "
+        f"{err:.3e} (limit {SERVE_TOL} · max |y| = {SERVE_TOL * scale:.3e})")
+    check(outputs["cuda"]["rows"] == outputs["cpu"]["rows"] and np.isfinite(card).all(), "orbax serve rows")
+    check(err <= SERVE_TOL * scale, "orbax serve: card vs CPU")
+    return {"serve_err": err, "serve_rows": outputs["cuda"]["rows"]}
+
+
+def _tools_full_width(device):
+    """(d) serve_bench, a short pipeline_bench, and mfu_probe's three modes
+    (the perceiver at one width) at full width; their JSON lines."""
+    from predict_pv_yield_tpu_torch import mfu_probe, pipeline_bench, serve_bench
+
+    results = {"serve_bench": serve_bench.run(device)}
+    log(json.dumps(results["serve_bench"]))
+    results["pipeline_bench"] = pipeline_bench.run(shards=8, steps=24, workers=8, device=device)
+    log(json.dumps(results["pipeline_bench"]))
+    results["pipeline_bench_host"] = pipeline_bench.run(shards=8, steps=24, workers=8, host_only=True)
+    log(json.dumps(results["pipeline_bench_host"]))
+    for name, run in (("towers", lambda: mfu_probe.probe_towers(device)),
+                      ("step", lambda: mfu_probe.probe_step(device)),
+                      ("perceiver", lambda: mfu_probe.probe_perceiver(device, "24x24x32"))):
+        results[f"mfu_{name}"] = run()
+        log(json.dumps(results[f"mfu_{name}"]))
+    serve = results["serve_bench"]
+    log(f"[tools] (d) serve p50 / p99 at batch 1 {serve['p50_ms_b1']:.4f} / {serve['p99_ms_b1']:.4f} ms, "
+        f"{serve['throughput_ex_s_b128']:.2f} examples/s at batch 128; pipeline {results['pipeline_bench']['value']:.3f}"
+        f" batches/s end to end, host alone {results['pipeline_bench_host']['value']:.3f}; towers "
+        f"{results['mfu_towers']['sat_tower']['tflops_per_s']:.2f} / {results['mfu_towers']['nwp_tower']['tflops_per_s']:.2f}"
+        f" TFLOP/s (sat / nwp, bf16)")
+    for name, result in results.items():
+        check(not _tool_errors(result), f"{name} failed: {_tool_errors(result)}")
+        numbers = list(_tool_numbers(result))
+        check(numbers and all(np.isfinite(v) and v > 0 for v in numbers), f"{name} numbers: {result}")
+    check("latents_24x24_b32" in results["mfu_perceiver"], "mfu_probe --mode perceiver ran no width")
+    return results
+
+
+def _tool_errors(result):
+    """The ``error`` entries anywhere in a tool's JSON line."""
+    return [v for k, v in result.items() if k == "error"] + [
+        e for v in result.values() if isinstance(v, dict) for e in _tool_errors(v)]
+
+
+def _tool_numbers(result):
+    """Every number in a tool's JSON line (its labels skipped)."""
+    for value in result.values():
+        if isinstance(value, dict):
+            yield from _tool_numbers(value)
+        elif isinstance(value, (int, float)) and not isinstance(value, bool):
+            yield float(value)
+        elif not isinstance(value, str):
+            yield float("nan")  # None or anything else where a number belongs
+
+
+def _sweep_on_card(tmp):
+    """(e) ``run.py -m`` with 2 trials at a small width on the card."""
+    import contextlib as _contextlib
+    import io
+    import os
+    import shutil
+
+    from predict_pv_yield_tpu_torch import run
+
+    cwd = os.getcwd()
+    data = os.path.join(REPO_ROOT, "tests", "configs", "dataset_small")
+    os.makedirs(f"{tmp}/sweep")
+    shutil.copytree(data, f"{tmp}/sweep/ds")
+    os.chdir(f"{tmp}/sweep")
+    out = io.StringIO()
+    try:
+        start = time.perf_counter()
+        with _contextlib.redirect_stdout(out):
+            best = run.main(SWEEP_OVERRIDES + ["datamodule.data_path=ds"])
+        seconds = time.perf_counter() - start
+    finally:
+        os.chdir(cwd)
+    (run_dir,) = [p for p in os.scandir(f"{tmp}/sweep/logs/multiruns") if p.is_dir()]
+    trials = sorted(d for d in os.listdir(run_dir.path) if d.isdigit())
+    line = [ln for ln in out.getvalue().splitlines() if ln.startswith("sweep best value:")]
+    log(f"[sweep] (e) run.py -m, 2 trials on the card: {line[0] if line else 'no best-value line'}; trial "
+        f"directories {trials}; {seconds:.2f} s")
+    check(trials == ["0", "1"] and line and best is not None and np.isfinite(best), "the sweep on the card")
+    for trial in trials:
+        check(os.path.exists(os.path.join(run_dir.path, trial, "checkpoints", "last", "state.pt")), f"trial {trial}")
+    return {"sweep_best": best, "sweep_seconds": seconds}
+
+
+def _fake_on_device(device):
+    """(f) ``fake_batch_on_device`` at the flagship's configuration on the card."""
+    from predict_pv_yield_tpu_torch.data.fake import fake_batch_on_device
+    from predict_pv_yield_tpu_torch.flagship import flagship_configuration
+
+    batch = fake_batch_on_device(flagship_configuration(32), seed=0, device=device)
+    again = fake_batch_on_device(flagship_configuration(32), seed=0, device=device)
+    fields = {}
+    for group in ("satellite", "nwp", "pv", "gsp", "sun", "topographic", "hrvsatellite"):
+        for name, value in vars(getattr(batch, group)).items():
+            if isinstance(value, torch.Tensor):
+                fields[name] = value
+    check(all(v.device.type == "cuda" for v in fields.values()), "a fake field off the card")
+    check(all(v.dtype in (torch.float32, torch.int32) for v in fields.values()), "a fake field's dtype")
+    check(0 <= float(fields["gsp_yield"].min()) and float(fields["gsp_yield"].max()) < 1, "gsp_yield range")
+    check(int(fields["pv_system_row_number"].max()) < 940 and int(fields["gsp_id"].max()) < 340, "id ranges")
+    check(all(torch.equal(a, b) for a, b in zip(batch.leaves(), again.leaves())), "fake batches differ per seed")
+    log(f"[fake] (f) fake_batch_on_device at the flagship's configuration: {len(fields)} fields on {device}, "
+        f"float32 and int32, in their ranges, the same per seed; satellite {tuple(batch.satellite.data.shape)}")
+    return {"fake_fields": len(fields)}
+
+
+def phase_orbax(device):
+    """Phase 15: the JAX package's checkpoints read natively, resumed and
+    served on the card, and the tooling at full width."""
+    from predict_pv_yield_tpu_torch.ops import sep_blur as blur
+
+    import os
+
+    start = time.perf_counter()
+    launches = blur.launches
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the fits' result CSVs land here
+        try:
+            results.update(_orbax_zstd())
+            results.update(_orbax_resume(device, tmp))
+            results.update(_orbax_serve(tmp))
+            results["tools"] = _tools_full_width(device)
+            results.update(_sweep_on_card(tmp))
+            results.update(_fake_on_device(device))
+        finally:
+            os.chdir(cwd)
+    check(blur.launches == launches, "the checkpoint and tooling phase launched sep_blur")
+    results["seconds"] = time.perf_counter() - start
+    log(f"[orbax] phase 15: {results['seconds']:.2f} s; sep_blur launched {blur.launches - launches} times")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
@@ -4211,7 +4613,12 @@ def main() -> int:
         f"dense bf16; TF32 allowed: "
         f"matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}")
 
-    phase_build()
+    with _GateProcess("--deterministic") as gate:  # phase 9 (d) trains while nvcc builds
+        phase_build()
+        waited = time.perf_counter()
+        gate_run = gate.result()
+    log(f"[perceiver] (d) the gate's process: {gate_run['seconds']:.2f} s, {time.perf_counter() - waited:.2f} s "
+        f"of it after the build")
     rows = phase_kernels(device, bandwidth, flops_peak)
     loader, load_launches, headline_rate, headline_frames = phase_nowcast(device)
     request_launches, _ = phase_requests(device, loader)
@@ -4219,13 +4626,14 @@ def main() -> int:
     serve = phase_serve(device, bandwidth, flops_peak)
     trained = phase_train(device, bandwidth, flops_peak)
     data = phase_data(device, trained)
-    perceivers = phase_perceiver(device, bandwidth, flops_peak, data["baseline_nmae"])
+    perceivers = phase_perceiver(device, bandwidth, flops_peak, data["baseline_nmae"], gate_run)
     zoo = phase_zoo(device, bandwidth, flops_peak, bf16_peak, serve, trained, perceivers, data["baseline_nmae"])
     with tempfile.TemporaryDirectory() as tmp:
         formats, tree = phase_formats(device, trained, data, tmp)
         trainer = phase_trainer(device, tree)
     flow_train = phase_flow_train(device, headline_frames, headline_rate, flops_peak)
     parallel = phase_parallel(device, headline_frames, trainer)
+    orbax = phase_orbax(device)
 
     level_ms = sum(r["ms"] for r in rows if r["case"].startswith("headline"))
     log(f"[breakdown] sep_blur share of flow_sequence {FRAMES}x{SIDE}x{SIDE}: "
@@ -4248,7 +4656,8 @@ def main() -> int:
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
                     **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats,
-                    "trainer": trainer, "flow_train": flow_train, "parallel": parallel}, default=str))
+                    "trainer": trainer, "flow_train": flow_train, "parallel": parallel, "orbax": orbax},
+                   default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

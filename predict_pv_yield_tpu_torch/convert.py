@@ -18,12 +18,16 @@ JAX. Layouts:
   (:func:`fuse_geglu_params`, :func:`split_geglu_params` its inverse);
 * a perceiver state in that unpartitioned layout ↔ one model rank's shard
   of it (:func:`tp_shard`, :func:`tp_unshard`), the layout of
-  ``Perceiver.partition``.
+  ``Perceiver.partition``;
+* a whole JAX ``TrainState`` (``training/orbax.py`` reads it) → the port's
+  ``Trainer.state`` (:func:`train_state_from_flax`): Adam's moments and the
+  accumulated gradients go through the parameters' own conversion.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+import re
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -470,3 +474,132 @@ def load_lightning_checkpoint(path: str) -> Dict:
     checkpoint = torch.load(path, map_location="cpu", weights_only=not path.endswith(".ckpt"))
     state_dict = checkpoint.get("state_dict", checkpoint)
     return strip_lightning_prefix(state_dict)
+
+
+def params_from_flax(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """The port ``model``'s ``state_dict`` for the JAX package's parameters
+    of the same model (the variables dict or its ``"params"``), by the
+    conversion of its family."""
+    family = type(model).__module__.rsplit(".", 1)[-1]
+    if family == "baseline":
+        return {}
+    if family == "experimental":
+        family = {"CNNConcatTimesteps": "cnn_concat_timesteps", "CNNRNN": "cnn_rnn"}[type(model).__name__]
+    if family.startswith("perceiver"):
+        family = "perceiver"
+    converters = {
+        "conv3d_sat_nwp": conv3d_sat_nwp_from_flax, "conv3d": conv3d_from_flax, "conv3d_nwp": conv3d_nwp_from_flax,
+        "cnn_concat_timesteps": cnn_concat_timesteps_from_flax, "cnn_rnn": cnn_rnn_from_flax,
+        "perceiver": perceiver_from_flax,
+    }
+    if family not in converters:
+        raise ValueError(f"no flax conversion for {type(model).__name__} ({type(model).__module__})")
+    return converters[family](params, model)
+
+
+def _numpy_tree(node):
+    """Leaves as numpy (a ``torch.bfloat16`` leaf widened to float32, which
+    is exact)."""
+    if isinstance(node, Mapping):
+        return {key: _numpy_tree(value) for key, value in node.items()}
+    if isinstance(node, torch.Tensor):
+        return node.float().numpy()
+    return np.asarray(node)
+
+
+def _leaves(node, path=()) -> Dict[tuple, Any]:
+    if isinstance(node, Mapping):
+        out = {}
+        for key, value in node.items():
+            out.update(_leaves(value, path + (str(key),)))
+        return out
+    return {path: node}
+
+
+def _find(node, keys, skip=()) -> Optional[Mapping]:
+    """The first mapping under ``node`` holding all of ``keys`` (``skip``
+    subtrees left out), depth first in key order."""
+    if not isinstance(node, Mapping):
+        return None
+    if set(keys) <= set(node):
+        return node
+    for key in sorted(node, key=str):
+        if key in skip:
+            continue
+        found = _find(node[key], keys, skip)
+        if found is not None:
+            return found
+    return None
+
+
+def _matched(tree: Mapping, model, names: List[str], what: str, params: Mapping) -> List[torch.Tensor]:
+    """``tree`` (a flax tree shaped as the parameters) through the
+    parameters' conversion, in the order of ``names``; every leaf of the
+    tree must find its parameter and every parameter its leaf."""
+    if set(_leaves(tree)) != set(_leaves(params)):
+        missing = sorted(set(_leaves(params)) ^ set(_leaves(tree)))
+        raise ValueError(f"{what}: its leaves differ from the parameters' at {missing[:5]}")
+    state = params_from_flax(fuse_geglu_params(tree), model)
+    # the state_dict names a tied parameter at each of its places
+    # (the perceiver's shared block); Adam keeps it once
+    expected = {tp_full_name(name) for name in model.state_dict()}
+    if set(state) != expected or not set(names) <= expected:
+        left = sorted(set(state) ^ expected) or sorted(set(names) - expected)
+        raise ValueError(f"{what}: the converted names and the model's parameters differ at {left[:5]}")
+    # nothing of the flax tree is left over: the parameters hold every
+    # element of it (a GRU's r and z hidden biases are zeros the port adds)
+    flax_count = sum(int(np.size(leaf)) for leaf in _leaves(tree).values())
+    added = sum(state[name].numel() * 2 // 3 for name in names if re.search(r"\.bias_hh_l\d+$", name))
+    if sum(state[name].numel() for name in names) - added != flax_count:
+        raise ValueError(f"{what}: {flax_count} flax elements do not fill the model's parameters")
+    return [state[name].contiguous() for name in names]
+
+
+def train_state_from_flax(tree: Mapping, model, trainer_config: Optional[Mapping] = None) -> Dict[str, Any]:
+    """The port's ``Trainer.state`` (``{"model", "optimizer",
+    "accumulation"}``) for a JAX ``TrainState`` read as a nested dict
+    (``training/orbax.py``: ``params``, ``opt_state``).
+
+    ``model`` is the port model (partitioned or not: the state is in the
+    unpartitioned layout, as ``Trainer.state`` takes it); ``trainer_config``
+    gives the trainer's ``learning_rate``, ``accumulate_grad_batches`` and
+    ``gradient_clip_val``, which must describe the optax chain the state
+    came from: ``MultiSteps`` when accumulating, ``clip_by_global_norm``
+    before Adam when clipping (without it, the chain is taken as it is,
+    for serving). Adam's ``mu``/``nu`` become ``exp_avg``/
+    ``exp_avg_sq`` through the parameters' own permutation, optax's
+    ``count`` each parameter's ``step`` (a float32 scalar, which the
+    trainer's Adam moves to the card in its capturable form), and
+    ``MultiSteps``' ``acc_grads``/``mini_step`` the accumulation window.
+    """
+    tree = _numpy_tree(tree)
+    params, opt_state = tree["params"], tree["opt_state"]
+    names = list(dict.fromkeys(tp_full_name(name) for name, p in model.named_parameters() if p.requires_grad))
+    model_state = params_from_flax(fuse_geglu_params(params), model)
+    multi = "acc_grads" in opt_state
+    config = trainer_config or {}
+    if trainer_config is not None and multi != (int(config.get("accumulate_grad_batches", 1)) > 1):
+        raise ValueError("the checkpoint's optax.MultiSteps state and the trainer's accumulate_grad_batches differ")
+    inner = opt_state["inner_opt_state"] if multi else opt_state
+    adam = _find(inner, ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the checkpoint's opt_state")
+    clipped = "1" in inner and _find(inner["1"], ("count", "mu", "nu")) is adam
+    if trainer_config is not None and clipped != (float(config.get("gradient_clip_val", 0.0)) > 0):
+        raise ValueError("the checkpoint's clip_by_global_norm chain and the trainer's gradient_clip_val differ")
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    moments = {key: _matched(adam[flax], model, names, f"Adam {flax}", params)
+               for key, flax in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}
+    template = torch.optim.Adam([p for p in model.parameters() if p.requires_grad] or [torch.zeros(1)],
+                                lr=float(config.get("learning_rate", 5e-4)), betas=(0.9, 0.999), eps=1e-8)
+    group = {**template.state_dict()["param_groups"][0], "params": list(range(len(names)))}
+    optimizer = {
+        "state": {i: {"step": step.clone(), "exp_avg": moments["exp_avg"][i], "exp_avg_sq": moments["exp_avg_sq"][i]}
+                  for i in range(len(names))},
+        "param_groups": [group],
+    }
+    accumulation = None
+    if multi:
+        accumulation = {"grads": _matched(opt_state["acc_grads"], model, names, "acc_grads", params),
+                        "mini_step": int(np.asarray(opt_state["mini_step"]))}
+    return {"model": model_state, "optimizer": optimizer, "accumulation": accumulation}

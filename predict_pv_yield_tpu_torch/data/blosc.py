@@ -25,8 +25,9 @@ c-blosc1 container format:
     byte-shuffle is applied per block before splitting.
 
 Inner codecs: LZ4 via the port's host codec (``csrc/lz4.cpp``, built on
-first use; ``native.py``), zlib via the stdlib, zstd via the ``zstandard``
-package, imported where a zstd stream is met (a machine without it raises
+first use; ``native.py``), zlib via the stdlib, zstd decoded by the port's
+host decoder (``csrc/zstd.cpp``) and encoded by the ``zstandard`` package,
+imported where a zstd stream is written (a machine without it raises
 ``ImportError`` naming it). blosclz/snappy raise a clear error. The decoder attempts the split
 layout first and falls back to unsplit when the stream headers are
 inconsistent (sizes out of frame bounds or payloads failing to decompress
@@ -66,9 +67,7 @@ def _decompress_stream(codec: int, payload: bytes, out_size: int) -> bytes:
             raise ValueError("zlib stream size mismatch")
         return out
     if codec == _CODEC_ZSTD:
-        import zstandard
-
-        out = zstandard.ZstdDecompressor().decompress(payload, max_output_size=out_size)
+        out = native.zstd_decompress(payload)
         if len(out) != out_size:
             raise ValueError("zstd stream size mismatch")
         return out

@@ -4,6 +4,8 @@ port of the JAX package's ``data/fake.py``).
 Each ``FakeDataset[i]`` is one full :class:`Batch` of CPU tensors, drawn from
 ``np.random.default_rng((seed, i))`` field by field in the JAX package's
 order, so a batch here equals the JAX package's batch value for value.
+:func:`fake_batch_on_device` draws a numeric batch on the device itself, so
+that a benchmark leaves the data pipeline out.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from predict_pv_yield_tpu_torch.data.batch import Batch, batch_shapes, field_dtype
 
@@ -75,6 +78,39 @@ def fake_batch(configuration, rng: np.random.Generator) -> Batch:
                     arr = base[:, None] + idx[None, :] * (_cadence_minutes(name) * _NS_PER_MIN)
             data[group][name] = arr
     return Batch.from_host(data)
+
+
+def fake_batch_on_device(configuration, seed: int = 0, device="cuda") -> Batch:
+    """A numeric Batch drawn on ``device`` from a ``torch.Generator`` seeded
+    with ``seed`` (for benchmarks): the fields, dtypes and ranges of the
+    JAX package's ``fake_batch_on_device`` (float fields uniform in their
+    range or unit-normal, ids in ``[0, 940)`` or ``[0, 340)``), the int64
+    datetime fields left out. The same seed gives the same batch; the bits
+    are not ``jax.random``'s."""
+    from predict_pv_yield_tpu_torch.utils import resolve_device
+
+    device = resolve_device(device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    data: dict = {}
+    for group, fields in batch_shapes(configuration).items():
+        data[group] = {}
+        for name, shape in fields.items():
+            dtype = field_dtype(name)
+            if dtype == np.int64:
+                continue
+            if dtype == np.int32:
+                high = 940 if name == "pv_system_row_number" else 340
+                arr = torch.randint(0, high, shape, generator=generator, device=device, dtype=torch.int32)
+            else:
+                bounds = _uniform_range(name)
+                if bounds is None:
+                    arr = torch.randn(shape, generator=generator, device=device)
+                else:
+                    low, high = bounds
+                    arr = torch.rand(shape, generator=generator, device=device) * (high - low) + low
+            data[group][name] = arr
+    return Batch.from_dict(data)
 
 
 def model_configuration(model, batch_size=None):

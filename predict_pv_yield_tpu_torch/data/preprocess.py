@@ -121,3 +121,9 @@ def preprocess_batch(
             f"satellite data has {n_channels} channels but channel_names has {len(channel_names)}"
         )
     return batch.replace(satellite=_decode_group(batch.satellite, channel_names, crop))
+
+
+def stack_timesteps_as_channels(video: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, H, W) → (B, C·T, H, W): the experiment-001 input layout."""
+    batch, channels, timesteps, height, width = video.shape
+    return video.reshape(batch, channels * timesteps, height, width)

@@ -289,6 +289,47 @@ def perceiver_gate_overrides(arch: LearnableArchive) -> list:
     ]
 
 
+#: the JAX package's perceiver gate (``tests/test_learning_gate.py:107-119``)
+PERCEIVER_GATE_EPOCHS, PERCEIVER_GATE_LEARNING_RATE = 16, 1e-3
+
+
+def perceiver_gate_scores(
+    arch: LearnableArchive,
+    workdir: str,
+    epochs: int = PERCEIVER_GATE_EPOCHS,
+    learning_rate: float = PERCEIVER_GATE_LEARNING_RATE,
+    deterministic: bool = False,
+    device: str | None = None,
+) -> list:
+    """Train the perceiver gate (:func:`perceiver_gate_overrides`) in the new
+    directory ``workdir`` and return every epoch's validation
+    ``GATE_METRIC``. Under ``deterministic`` algorithms
+    (``utils.deterministic_algorithms``) every run on one card trains the
+    same trajectory; otherwise the card's atomics move it from run to run.
+    ``device`` overrides the trainer's (the card)."""
+    import contextlib
+    import csv
+    import glob
+    import io
+
+    from predict_pv_yield_tpu_torch.utils import deterministic_algorithms
+
+    overrides = perceiver_gate_overrides(arch) + [
+        f"trainer.max_epochs={epochs}", f"+trainer.learning_rate={learning_rate}"]
+    if device is not None:
+        overrides.append(f"+trainer.device={device}")
+    os.makedirs(workdir)
+    # the config tree and the profiler summary go to no terminal
+    with contextlib.redirect_stdout(io.StringIO()), \
+            (deterministic_algorithms() if deterministic else contextlib.nullcontext()):
+        run_learnable(arch, overrides, workdir=workdir)
+    scores = []
+    for path in glob.glob(os.path.join(workdir, "**", "metrics.csv"), recursive=True):
+        with open(path, newline="") as fh:
+            scores += [float(row[GATE_METRIC]) for row in csv.DictReader(fh) if row.get(GATE_METRIC)]
+    return scores
+
+
 def learnable_common_overrides(
     arch: LearnableArchive, batch_size: int = 8
 ) -> list:
@@ -346,3 +387,44 @@ def run_learnable(
         return float(result) if result is not None else None
     finally:
         os.chdir(cwd)
+
+
+def main(argv=None) -> dict:
+    """``python -m predict_pv_yield_tpu_torch.data.synthetic``: one run of
+    the perceiver gate on the synthetic archive (seed 0), printed as one
+    JSON line: every epoch's validation NMAE, the best, and its ratio to the
+    persistence baseline of the same archive (the gate asks < 0.85)."""
+    import argparse
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    from predict_pv_yield_tpu_torch.utils import device_name, resolve_device
+
+    parser = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    parser.add_argument("--epochs", type=int, default=PERCEIVER_GATE_EPOCHS)
+    parser.add_argument("--learning-rate", type=float, default=PERCEIVER_GATE_LEARNING_RATE)
+    parser.add_argument("--deterministic", action="store_true", help="deterministic algorithms")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    with tempfile.TemporaryDirectory() as tmp:
+        arch = make_learnable_archive(os.path.join(tmp, "learnable"), n_frames=288, px=24, n_gsp=4, seed=0,
+                                      with_nwp=True)
+        scores = perceiver_gate_scores(arch, os.path.join(tmp, "gate"), args.epochs, args.learning_rate,
+                                       args.deterministic, str(device))
+        os.makedirs(os.path.join(tmp, "baseline"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            baseline = run_learnable(arch, BASELINE_GATE_OVERRIDES + [f"+trainer.device={device}"],
+                                     workdir=os.path.join(tmp, "baseline"))
+    best = min(scores)
+    result = {"device": device_name(device), "deterministic": args.deterministic, "epochs": args.epochs,
+              "learning_rate": args.learning_rate, "scores": scores, "best": best, "best_epoch": scores.index(best),
+              "baseline": baseline, "ratio": best / baseline}
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

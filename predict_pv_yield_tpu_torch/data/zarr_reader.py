@@ -7,15 +7,19 @@ is needed: this module implements the slice of the zarr v2 spec those
 archives need, first-party:
 
 * ``.zarray`` JSON metadata (shape, chunks, dtype, order C, fill_value);
-* chunk files named ``i.j.k`` (dot-separated grid indices), raw,
-  zlib/gzip-compressed, or **blosc**-compressed (lz4/zlib/zstd inner codecs
-  with byte shuffle — the format real OCF archives use; first-party frame
-  codec in ``data/blosc.py`` + ``csrc/lz4.cpp``); filters raise as in the
-  JAX reader;
+* chunk files named ``i.j.k`` (dot-separated grid indices; ``0`` for a
+  scalar), raw, zlib/gzip-compressed, **blosc**-compressed (lz4/zlib/zstd
+  inner codecs with byte shuffle — the format real OCF archives use;
+  first-party frame codec in ``data/blosc.py`` + ``csrc/lz4.cpp``) or
+  zstd-compressed (``csrc/zstd.cpp``, as orbax writes); filters raise as in
+  the JAX reader;
 * basic orthogonal slicing assembled chunk-by-chunk, missing chunks filled
   with ``fill_value``.
 
-Local filesystem stores only, as in the JAX package. Chunks written by
+Local filesystem stores, as in the JAX package, or a mapping of keys to
+bytes (``store=``: an orbax checkpoint's OCDBT keys, read by
+``training/orbax.py``), where the dtype may also be ``"bfloat16"``: its
+elements are read as ``uint16`` (``ZarrArray.bfloat16`` says so). Chunks written by
 :func:`write_zarr` are byte-equal to the JAX package's (zlib level 5, or
 blosc-lz4 with byte shuffle at clevel 5).
 """
@@ -29,10 +33,11 @@ import os
 import threading
 import zlib
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 
+from predict_pv_yield_tpu_torch import native
 from predict_pv_yield_tpu_torch.data import blosc
 
 
@@ -47,25 +52,28 @@ class ZarrArray:
     marked read-only; slicing always copies out of them.
     """
 
-    def __init__(self, path: str, chunk_cache_bytes: int = 64 << 20):
+    def __init__(self, path: str, chunk_cache_bytes: int = 64 << 20, store: Optional[Mapping[str, bytes]] = None):
         self.path = path
+        self._store = store
         self._cache_budget = int(chunk_cache_bytes)
         self._cache: "OrderedDict[Tuple[int, ...], np.ndarray]" = OrderedDict()
         self._cache_nbytes = 0
         self._cache_lock = threading.Lock()
-        meta_path = os.path.join(path, ".zarray")
-        with open(meta_path) as fh:
-            meta = json.load(fh)
+        meta = json.loads(self._read(".zarray"))
         if meta.get("zarr_format") not in (None, 2):
             raise ValueError(f"unsupported zarr_format {meta.get('zarr_format')}")
         if meta.get("order", "C") != "C":
             raise ValueError("only C-order zarr arrays are supported")
         self.shape: Tuple[int, ...] = tuple(meta["shape"])
         self.chunks: Tuple[int, ...] = tuple(meta["chunks"])
-        self.dtype = np.dtype(meta["dtype"])
+        #: elements are bfloat16, held as their uint16 bits
+        self.bfloat16 = meta["dtype"] == "bfloat16"
+        self.dtype = np.dtype("<u2" if self.bfloat16 else meta["dtype"])
         self.fill_value = meta.get("fill_value", 0)
         if self.fill_value is None:
             self.fill_value = 0
+        elif self.bfloat16:  # a float, as the upper half of its float32 bits
+            self.fill_value = int(np.float32(self.fill_value).view(np.uint32) >> 16)
         if meta.get("filters"):
             # every other unsupported feature fails loudly; silently
             # skipping a filter inverse (delta, FixedScaleOffset, ...)
@@ -78,13 +86,27 @@ class ZarrArray:
         self._codec: Optional[str] = None
         if compressor is not None:
             codec_id = compressor.get("id")
-            if codec_id not in ("zlib", "gzip", "blosc"):
+            if codec_id not in ("zlib", "gzip", "blosc", "zstd"):
                 raise ValueError(
                     f"unsupported zarr compressor {codec_id!r} "
-                    "(first-party reader supports null/zlib/gzip/blosc)"
+                    "(first-party reader supports null/zlib/gzip/blosc/zstd)"
                 )
             self._codec = codec_id
         self._separator = meta.get("dimension_separator", ".")
+
+    def _read(self, name: str) -> Optional[bytes]:
+        """The bytes of member ``name`` (``.zarray`` raises if absent, a
+        chunk gives None)."""
+        if self._store is not None:
+            key = f"{self.path}/{name}" if self.path else name
+            if name == ".zarray" and key not in self._store:
+                raise FileNotFoundError(f"no zarr array {self.path!r} in the store")
+            return self._store.get(key)
+        path = os.path.join(self.path, name)
+        if name != ".zarray" and not os.path.exists(path):
+            return None
+        with open(path, "rb") as fh:
+            return fh.read()
 
     def __repr__(self) -> str:
         return f"ZarrArray(shape={self.shape}, chunks={self.chunks}, dtype={self.dtype})"
@@ -100,11 +122,8 @@ class ZarrArray:
     def attrs(self) -> dict:
         """User attributes from ``.zattrs`` (e.g. CF ``units`` on a time
         coordinate); empty dict when the file is absent."""
-        path = os.path.join(self.path, ".zattrs")
-        if not os.path.exists(path):
-            return {}
-        with open(path) as fh:
-            return json.load(fh)
+        raw = self._read(".zattrs")
+        return json.loads(raw) if raw is not None else {}
 
     @property
     def ndim(self) -> int:
@@ -128,17 +147,17 @@ class ZarrArray:
         return chunk
 
     def _read_chunk(self, index: Tuple[int, ...]) -> np.ndarray:
-        name = self._separator.join(str(i) for i in index)
-        path = os.path.join(self.path, name)
+        name = self._separator.join(str(i) for i in index) or "0"
         chunk_shape = self.chunks
-        if not os.path.exists(path):
+        raw = self._read(name)
+        if raw is None:
             return np.full(chunk_shape, self.fill_value, dtype=self.dtype)
-        with open(path, "rb") as fh:
-            raw = fh.read()
         if self._codec in ("zlib", "gzip"):
             raw = zlib.decompress(raw, zlib.MAX_WBITS | 32 if self._codec == "gzip" else zlib.MAX_WBITS)
         elif self._codec == "blosc":
             raw = blosc.decompress(raw)
+        elif self._codec == "zstd":
+            raw = native.zstd_decompress(raw)
         return np.frombuffer(raw, dtype=self.dtype).reshape(chunk_shape)
 
     def __getitem__(self, key) -> np.ndarray:

@@ -51,6 +51,11 @@ MODEL_TARGETS: Dict[str, Type] = {
 }
 
 
+def register_model(name: str, cls) -> None:
+    """Add a model class to the zoo under ``name``."""
+    MODEL_REGISTRY[name] = cls
+
+
 def get_model(name: str) -> Type:
     """The model class for a zoo name or a YAML ``_target_``."""
     if name in MODEL_REGISTRY:

@@ -125,14 +125,47 @@ class StackedGRU(nn.GRU):
             return super().forward(x.to(dtype), None if hx is None else hx.to(dtype))
 
 
+def _max_pool3d(x: torch.Tensor, return_indices: bool = False):
+    return F.max_pool3d(x, 3, stride=(1, 2, 2), padding=1, return_indices=return_indices)
+
+
+class DeterministicMaxPool3d(torch.autograd.Function):
+    """:func:`_max_pool3d` whose backward adds each output's gradient at its
+    argmax with ``index_add_``. The windows overlap, so several outputs can
+    add to one input: the card's own ``max_pool3d`` backward does that with
+    atomics and has no deterministic algorithm, while ``index_add_`` on the
+    card takes one (a sorted accumulation) under
+    ``torch.use_deterministic_algorithms(True)``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out, indices = _max_pool3d(x, return_indices=True)
+        ctx.save_for_backward(indices)
+        ctx.input_shape = x.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        (indices,) = ctx.saved_tensors
+        planes, plane = math.prod(ctx.input_shape[:2]), math.prod(ctx.input_shape[2:])
+        offsets = torch.arange(planes, device=indices.device).view(planes, 1) * plane
+        flat = (indices.reshape(planes, -1) + offsets).reshape(-1)
+        grad_input = grad.new_zeros(planes * plane).index_add_(0, flat, grad.reshape(-1))
+        return grad_input.view(ctx.input_shape)
+
+
 class Conv3dMaxPool(nn.Module):
     """``conv``: a 3×3×3 ``Conv3d`` padded by 1, then a 3×3×3 max-pool
     padded by 1 with stride (1, 2, 2): T kept, H and W halved (rounded up).
-    (B, C, T, H, W) in and out."""
+    (B, C, T, H, W) in and out. Under deterministic algorithms on the card
+    the pool's gradient goes through :class:`DeterministicMaxPool3d`."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv = nn.Conv3d(in_channels, out_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.max_pool3d(self.conv(x), 3, stride=(1, 2, 2), padding=1)
+        x = self.conv(x)
+        if x.requires_grad and x.is_cuda and torch.are_deterministic_algorithms_enabled():
+            return DeterministicMaxPool3d.apply(x)
+        return _max_pool3d(x)

@@ -1,6 +1,8 @@
 """The port's host libraries through ``ctypes``: the LZ4 block codec and
 blosc byte shuffle (``csrc/lz4.cpp``), beside their plain Python versions,
-and Farnebäck optical flow with its warp (``csrc/farneback.cpp``).
+Farnebäck optical flow with its warp (``csrc/farneback.cpp``), and the
+Zstandard decoder and CRC-32C that read the JAX package's orbax
+checkpoints (``csrc/zstd.cpp``).
 
 A copy of the JAX package's ``native.py``. The libraries are built by
 :mod:`~predict_pv_yield_tpu_torch._build` with the host compiler on first
@@ -26,6 +28,7 @@ from predict_pv_yield_tpu_torch import _build
 
 _lib: Optional[ctypes.CDLL] = None
 _flow_lib: Optional[ctypes.CDLL] = None
+_zstd_lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
@@ -68,6 +71,70 @@ def load_flow_library() -> ctypes.CDLL:
                 function.restype = None
             _flow_lib = lib
     return _flow_lib
+
+
+def load_zstd_library() -> ctypes.CDLL:
+    """The built ``csrc/zstd.cpp`` with its signatures declared (building it
+    on the first call)."""
+    global _zstd_lib
+    if _zstd_lib is not None:
+        return _zstd_lib
+    with _lock:
+        if _zstd_lib is None:
+            lib = _build.load("zstd")
+            byte_ptr = ctypes.POINTER(ctypes.c_uint8)
+            lib.zstd_decompress.argtypes = [
+                ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(byte_ptr), ctypes.c_char_p, ctypes.c_long]
+            lib.zstd_decompress.restype = ctypes.c_long
+            lib.zstd_free.argtypes = [byte_ptr]
+            lib.zstd_free.restype = None
+            lib.zstd_branch_counts.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_long]
+            lib.zstd_branch_counts.restype = ctypes.c_long
+            lib.crc32c.argtypes = [ctypes.c_char_p, ctypes.c_long]
+            lib.crc32c.restype = ctypes.c_uint32
+            _zstd_lib = lib
+    return _zstd_lib
+
+
+def zstd_decompress(data: bytes) -> bytes:
+    """Decode one or more Zstandard frames (skippable frames skipped) with
+    ``csrc/zstd.cpp``. A corrupt or truncated input raises ``ValueError``;
+    the output is never cut short."""
+    lib = load_zstd_library()
+    data = bytes(data)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    err = ctypes.create_string_buffer(256)
+    n = lib.zstd_decompress(data, len(data), ctypes.byref(out), err, len(err))
+    if n < 0:
+        raise ValueError(f"zstd: {err.value.decode()}")
+    try:
+        return ctypes.string_at(out, n)
+    finally:
+        lib.zstd_free(out)
+
+
+#: the decoder's branches, in the order of ``zstd_branch_counts``
+ZSTD_BRANCHES = (
+    "raw_block", "rle_block", "compressed_block",
+    "raw_literals", "rle_literals", "huffman_1_stream", "huffman_4_streams", "treeless",
+    "direct_weights", "fse_weights",
+    "predefined_table", "rle_table", "fse_table", "repeat_table",
+    "repeat_offset", "skippable_frame", "checksum", "multi_frame",
+)
+
+
+def zstd_branch_counts() -> dict:
+    """How often each branch of the decoder ran in this process."""
+    lib = load_zstd_library()
+    counts = (ctypes.c_uint64 * len(ZSTD_BRANCHES))()
+    lib.zstd_branch_counts(counts, len(ZSTD_BRANCHES))
+    return dict(zip(ZSTD_BRANCHES, counts))
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli), the checksum that ends every OCDBT file."""
+    data = bytes(data)
+    return int(load_zstd_library().crc32c(data, len(data)))
 
 
 def _as_float_ptr(array: np.ndarray):

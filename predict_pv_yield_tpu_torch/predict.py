@@ -2,9 +2,10 @@
 package's ``tools/predict.py`` and ``Trainer.predict``.
 
 Weights (a seed, a reference Lightning ``.ckpt``, a port ``state_dict``
-``.pt``, or a checkpoint the port's trainer wrote: its directory or its
+``.pt``, a checkpoint the port's trainer wrote: its directory or its
 ``state.pt``, served through ``Trainer.predict`` as the JAX tool serves its
-trainer's checkpoints), then batches (the test split of a prepared dataset with
+trainer's checkpoints, or a checkpoint directory the JAX package's trainer
+wrote, orbax or msgpack, read natively), then batches (the test split of a prepared dataset with
 ``--data``, NetCDF files or shards; else fake data shaped to the model's
 geometry), then the satellite decode and the forward on the device, then a
 forecast CSV with the columns ``batch_index, example_index,
@@ -43,7 +44,7 @@ from predict_pv_yield_tpu_torch.losses import WeightedLosses, mse_loss, nmae_los
 from predict_pv_yield_tpu_torch.metrics import mae_each_forecast_horizon, mse_each_forecast_horizon
 from predict_pv_yield_tpu_torch.models import get_model
 from predict_pv_yield_tpu_torch.models.layers import init_parameters
-from predict_pv_yield_tpu_torch.training.callbacks import STATE_FILE, load_state
+from predict_pv_yield_tpu_torch.training.callbacks import STATE_FILE, is_jax_checkpoint, load_state
 from predict_pv_yield_tpu_torch.utils import full_fp32, resolve_device
 
 
@@ -186,10 +187,9 @@ def load_model_config(path: str) -> Dict:
 
 
 def trainer_checkpoint(path: str) -> Optional[str]:
-    """The checkpoint directory of a path that names one the port's trainer
-    wrote (the directory, or its ``state.pt``), else None. A directory
-    without ``state.pt`` (the JAX package's orbax checkpoint) counts too:
-    reading it raises, naming ROADMAP T8."""
+    """The checkpoint directory of a path that names one: a directory the
+    port's trainer wrote (or its ``state.pt``), or one the JAX package's
+    trainer wrote (orbax, or ``state.msgpack``); else None."""
     if os.path.isdir(path):
         return path
     if os.path.basename(path) == STATE_FILE:
@@ -218,7 +218,7 @@ def build_model(model_name: str, model_config: Dict, checkpoint: Optional[str] =
     init_parameters(model, torch.Generator().manual_seed(seed))
     if checkpoint is not None:
         directory = trainer_checkpoint(checkpoint)
-        state = load_state(directory)["model"] if directory else load_lightning_checkpoint(checkpoint)
+        state = load_state(directory, model=model)["model"] if directory else load_lightning_checkpoint(checkpoint)
         model.load_state_dict(state, strict=True)
     return model.eval()
 
@@ -261,10 +261,14 @@ def run(
     """The CLI's work for a model config given as a dict → ``{"predictions",
     "rows", "nmae"}`` (``nmae`` None unless asked for). Without a
     checkpoint the weights come from seed 0; a trainer checkpoint is served
-    through ``Trainer.predict`` with it as ``resume_from_checkpoint``;
-    without ``data`` the batches are fake."""
+    through ``Trainer.predict`` with it as ``resume_from_checkpoint``; a
+    JAX package checkpoint gives its parameters to the model, whatever
+    optimiser chain it was trained with; without ``data`` the batches are
+    fake."""
     device = resolve_device(device)
     directory = trainer_checkpoint(checkpoint) if checkpoint else None
+    if directory and is_jax_checkpoint(directory):
+        directory = None
     weights = None if directory else checkpoint
     if data:
         loader, configuration = data_loader(data, n_batches)
@@ -295,8 +299,9 @@ def main(argv=None) -> Dict:
                         help="model-zoo name (conv3d_sat_nwp, conv3d, conv3d_nwp, cnn_concat_timesteps, cnn_rnn, "
                         "perceiver, perceiver_nwp_sat, perceiver_conv3d_nwp_sat)")
     parser.add_argument("--model-config", required=True, help="model hyperparameter YAML")
-    parser.add_argument("--checkpoint", help="reference Lightning .ckpt, port state_dict .pt, or a checkpoint "
-                        "directory of the port's trainer (or its state.pt)")
+    parser.add_argument("--checkpoint", help="reference Lightning .ckpt, port state_dict .pt, a checkpoint "
+                        "directory of the port's trainer (or its state.pt), or one of the JAX package's trainer "
+                        "(orbax or state.msgpack)")
     parser.add_argument("--data", help="prepared dataset dir: NetCDF files or shards (omit for fake data)")
     parser.add_argument("--n-batches", type=int, default=10)
     parser.add_argument("--out", default="forecasts.csv")

@@ -5,8 +5,10 @@ A checkpoint is a directory: ``state.pt`` (``torch.save`` of the trainer's
 ``state``: the model ``state_dict``, the optimiser ``state_dict`` and the
 gradient-accumulation buffer), ``loop.json`` (loop counters and every
 callback's state, ``Trainer.loop_state``) and, for a best save,
-``monitor.json``. Resume from it is exact. The JAX package's orbax
-checkpoint directories are not read (ROADMAP T8). With several ranks the
+``monitor.json``. Resume from it is exact. The JAX package's checkpoint
+directories (orbax, or flax msgpack in ``state.msgpack``) are read too,
+through ``training/orbax.py`` and ``convert.train_state_from_flax``, with
+the same ``loop.json``; the port writes only its own. With several ranks the
 main process writes, after every rank has taken the trainer's ``state``
 (under tensor parallelism a gather over the model group), and every rank
 waits at a barrier after each write.
@@ -78,15 +80,38 @@ def load_loop_state(path: str) -> Optional[Dict]:
         return json.load(fh)
 
 
-def load_state(path: str):
-    """The ``state`` a checkpoint directory holds, on the CPU."""
-    state_path = os.path.join(os.path.abspath(path), STATE_FILE)
-    if not os.path.exists(state_path):
-        raise NotImplementedError(
-            f"{path} holds no {STATE_FILE}: only the port's checkpoints are read; the JAX "
-            "package's orbax checkpoints are not (ROADMAP T8)"
-        )
-    return torch.load(state_path, map_location="cpu", weights_only=True)
+def is_jax_checkpoint(path: str) -> bool:
+    """Whether ``path`` is a checkpoint directory the JAX package wrote
+    (orbax's ``_METADATA`` and ``manifest.ocdbt``, or ``state.msgpack``)."""
+    path = os.path.abspath(path)
+    return (os.path.exists(os.path.join(path, "_METADATA")) and os.path.exists(os.path.join(path, "manifest.ocdbt"))
+            ) or os.path.exists(os.path.join(path, "state.msgpack"))
+
+
+def load_state(path: str, model=None, trainer_config: Optional[Dict] = None):
+    """The ``state`` a checkpoint directory holds, on the CPU: the port's
+    ``state.pt``, or a JAX package checkpoint converted for ``model`` (which
+    it needs; ``trainer_config`` as ``convert.train_state_from_flax``
+    takes it)."""
+    path = os.path.abspath(path)
+    state_path = os.path.join(path, STATE_FILE)
+    if os.path.exists(state_path):
+        return torch.load(state_path, map_location="cpu", weights_only=True)
+    if not is_jax_checkpoint(path):
+        raise FileNotFoundError(f"{path} is no checkpoint: it holds neither {STATE_FILE} nor a JAX orbax or "
+                                "msgpack state")
+    if model is None:
+        raise ValueError(f"{path} is a JAX package checkpoint: converting it needs the model")
+    from predict_pv_yield_tpu_torch.convert import train_state_from_flax
+    from predict_pv_yield_tpu_torch.training.orbax import read_msgpack, read_train_state
+
+    msgpack = os.path.join(path, "state.msgpack")
+    if os.path.exists(msgpack):
+        with open(msgpack, "rb") as fh:
+            tree = read_msgpack(fh.read())
+    else:
+        tree = read_train_state(path)
+    return train_state_from_flax(tree, model, trainer_config)
 
 
 class ModelCheckpoint(Callback):

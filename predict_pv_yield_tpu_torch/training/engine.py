@@ -403,11 +403,19 @@ class Trainer:
                 optimizer = self._optimizer_layout(optimizer, full=False)
         self._model.load_state_dict(model, strict=True)
         if self.optimizer is not None and optimizer is not None:
+            capturable = [group["capturable"] for group in self.optimizer.param_groups]
             self.optimizer.load_state_dict(optimizer)
             # the trainer's learning rate, as the JAX engine's optimiser
-            # takes it from the trainer and not from the checkpoint
-            for group in self.optimizer.param_groups:
+            # takes it from the trainer and not from the checkpoint; Adam's
+            # form (capturable on the card, its step on the parameter's
+            # device) is the trainer's, whatever device wrote the state
+            for group, on_card in zip(self.optimizer.param_groups, capturable):
                 group["lr"] = self._lr
+                group["capturable"] = on_card
+                for p in group["params"]:
+                    st = self.optimizer.state.get(p)
+                    if st and "step" in st:
+                        st["step"] = st["step"].to(device=p.device if on_card else "cpu", dtype=torch.float32)
         self._graphs = {}  # they hold the replaced optimiser state
         accumulation = state.get("accumulation")
         if accumulation:
@@ -544,7 +552,9 @@ class Trainer:
         self._graphs = {}
         self._weighted = WeightedLosses(forecast_length=model.forecast_len, device=self.device)
         if self.resume_from_checkpoint:
-            self.state = load_state(self.resume_from_checkpoint)
+            self.state = load_state(self.resume_from_checkpoint, model=self._model, trainer_config={
+                "learning_rate": self.learning_rate, "accumulate_grad_batches": self.accumulate_grad_batches,
+                "gradient_clip_val": self.gradient_clip_val})
             self._restore_loop_state(self.resume_from_checkpoint)
             log.info("resumed from %s", self.resume_from_checkpoint)
 

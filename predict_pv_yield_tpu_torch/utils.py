@@ -7,6 +7,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import warnings
 from typing import Any, Dict, Sequence
 
@@ -52,6 +53,81 @@ def full_fp32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = previous
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN and PyTorch held to deterministic algorithms inside the block,
+    restored on exit: flash attention's backward takes its deterministic
+    algorithm, and an op without one raises."""
+    cudnn = torch.backends.cudnn
+    before = torch.are_deterministic_algorithms_enabled(), cudnn.deterministic, cudnn.benchmark
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        cudnn.deterministic, cudnn.benchmark = before[1], before[2]
+
+
+def device_name(device) -> str:
+    """The name a result gives the device it ran on: the card's, or "cpu"."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def load_config(config_file: str) -> Dict[str, Any]:
+    """A model YAML as a dict without its ``_target_``; a relative path
+    that does not exist from the working directory resolves against the
+    repository root."""
+    import yaml
+
+    if not os.path.isabs(config_file) and not os.path.exists(config_file):
+        config_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", config_file)
+    with open(config_file, "r") as fh:
+        config = yaml.safe_load(fh)
+    config.pop("_target_", None)
+    return config
+
+
+def get_logger(name: str = __name__, level: int = logging.INFO) -> logging.Logger:
+    """A logger that only the main process (rank 0) lets through."""
+    logger = logging.getLogger(name)
+    logger.setLevel(level)
+    if not is_main_process():
+        logger.addFilter(lambda record: False)
+    return logger
+
+
+def timed_device_compute(dispatch, runs: int, device="cuda"):
+    """Device seconds of ``runs`` calls of ``dispatch`` (a zero-argument
+    callable that enqueues work on ``device``) → ``(seconds, info)``.
+
+    On the card the time is read from CUDA events around the calls, after
+    one untimed call; the JAX package's transfer subtraction (its remote
+    rig shipped results over a slow link) has no counterpart, so
+    ``info["transfer_dominated"]`` is always False. On the CPU the wall
+    time of the calls is returned."""
+    import time
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        dispatch()
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            dispatch()
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1000.0
+    else:
+        begin = time.perf_counter()
+        for _ in range(runs):
+            dispatch()
+        seconds = time.perf_counter() - begin
+    return seconds, {"wall_seconds": seconds, "transfer_dominated": False, "runs": runs}
 
 
 def extras(config: Dict[str, Any]) -> None:

@@ -137,10 +137,17 @@ def test_memcpy_split_and_leftover_frames():
 
 
 def test_zstd_without_zstandard_raises_naming_it(monkeypatch):
-    frame = jblosc.compress(np.arange(5000, dtype=np.int16).tobytes(), typesize=2, cname="zstd")
+    raw = np.arange(5000, dtype=np.int16).tobytes()
+    frame = jblosc.compress(raw, typesize=2, cname="zstd")
     monkeypatch.setitem(sys.modules, "zstandard", None)
+    # reading goes through the port's own decoder; only writing needs the package
+    assert blosc.decompress(frame) == raw
     with pytest.raises(ImportError, match="zstandard"):
-        blosc.decompress(frame)
+        blosc.compress(raw, typesize=2, cname="zstd")
+    corrupt = bytearray(frame)
+    corrupt[-4:] = b"\xff\xff\xff\xff"
+    with pytest.raises(ValueError):
+        blosc.decompress(bytes(corrupt))
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

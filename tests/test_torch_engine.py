@@ -319,13 +319,14 @@ def test_left_out_knobs_raise(knob, value, item, tmp_cwd):
 
 def test_left_out_methods_raise_and_compat_knobs_are_ignored():
     """lr_find and tune are ported: without a loader lr_find raises
-    ValueError and tune without auto_lr_find runs no tuner; orbax
-    checkpoints (T8) still raise."""
+    ValueError and tune without auto_lr_find runs no tuner; a directory
+    that is no checkpoint (neither the port's ``state.pt`` nor a JAX orbax
+    or msgpack state, which are read since T8) raises."""
     trainer = Trainer(device="cpu", gpus=0, progress_bar_refresh_rate=5, weights_save_path="x")
     with pytest.raises(ValueError, match="train_dataloaders"):
         trainer.lr_find(None)
     assert trainer.tune(None) == {} and trainer.learning_rate == 5e-4
-    with pytest.raises(NotImplementedError, match="ROADMAP T8"):
+    with pytest.raises(FileNotFoundError, match="is no checkpoint"):
         load_state(os.path.dirname(__file__))
 
 

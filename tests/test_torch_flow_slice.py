@@ -269,14 +269,30 @@ def test_port_imports_nothing_of_jax():
     # the multi-process package too
     parallel = {path.name for path in files if path.parent.name == "parallel"}
     assert {"__init__.py", "mesh.py", "distributed.py", "tensor_parallel.py"} <= parallel
-    forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "predict_pv_yield_tpu"}
+    # the new modules of the checkpoint reader and the tooling too
+    names = {str(path.relative_to(REPO)) for path in files}
+    assert {"predict_pv_yield_tpu_torch/training/orbax.py", "predict_pv_yield_tpu_torch/sweep.py",
+            "predict_pv_yield_tpu_torch/flops.py", "predict_pv_yield_tpu_torch/mfu_probe.py"} <= names
+    forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "predict_pv_yield_tpu"}
     offenders = [
-        (str(path.relative_to(REPO)), module)
+        (str(path.relative_to(REPO)), scope, module)
         for path in files
-        for module in _imported_modules(path)
+        for scope, module in _imports_by_scope(path)
         if module.split(".")[0] in forbidden
+        and (str(path.relative_to(REPO)), scope, module) not in ZSTANDARD_BLOSC_CODEC
     ]
     assert not offenders, offenders
+    assert not [m for path in files for m in _imported_modules(path)
+                if m.split(".")[0] in forbidden - {"zstandard"}]
+
+
+#: the one use of the zstandard package: writing blosc frames with the zstd
+#: inner codec, as the JAX package's blosc writes them (the port has a zstd
+#: decoder, csrc/zstd.cpp, and no zstd encoder); every zstd frame the port
+#: reads, blosc's and the orbax checkpoints', goes through its own decoder
+ZSTANDARD_BLOSC_CODEC = {
+    ("predict_pv_yield_tpu_torch/data/blosc.py", "_compress_stream", "zstandard"),
+}
 
 
 #: packages no port module imports at module level (the card's machine need

@@ -100,11 +100,20 @@ def test_cli_example_simple_matches_jax_cli(tmp_cwd):
     _assert_same_results(outputs["port"] / "results_epoch_0.csv", outputs["jax"] / "results_epoch_0.csv", 16)
 
 
-def test_cli_multirun_names_roadmap_item():
-    from predict_pv_yield_tpu_torch import run
+def test_cli_multirun_names_roadmap_item(monkeypatch, tmp_cwd):
+    """M15's multirun is ported: ``-m`` hands the composed sweep to
+    ``sweep.run_sweep`` (its trials run in tests/test_torch_sweep.py)."""
+    from predict_pv_yield_tpu_torch import run, sweep
 
-    with pytest.raises(NotImplementedError, match="M15"):
-        run.main(["-m", "hparams_search=conv3d_optuna"])
+    seen = {}
+
+    def run_sweep(compose_fn, overrides, config):
+        seen.update(overrides=overrides, sweep=config["sweep"])
+        return 0.5, {"model.include_nwp": True}, []
+
+    monkeypatch.setattr(sweep, "run_sweep", run_sweep)
+    assert run.main(["-m", "hparams_search=conv3d_optuna"]) == 0.5
+    assert seen["overrides"] == ["hparams_search=conv3d_optuna"] and seen["sweep"]["n_trials"] == 20
 
 
 def test_conv3d_sat_nwp_fast_dev_run_returns_metric(tmp_cwd):

@@ -3,8 +3,9 @@
 port's ``Trainer`` with ``ModelCheckpoint``, then ``predict.main
 --checkpoint`` on the checkpoint directory (and on its ``state.pt``) writes
 the trained model's forecasts, which differ from the seed-0 model's. A
-directory without ``state.pt`` (a JAX orbax checkpoint) still raises,
-naming ROADMAP T8. ``Trainer.predict`` equals the JAX package's
+directory that holds no checkpoint raises (the JAX package's orbax
+checkpoints, ROADMAP T8, are served since: ``tests/test_torch_orbax.py``).
+``Trainer.predict`` equals the JAX package's
 ``Trainer.predict`` on the same weights at rtol/atol 1e-4
 (``tests/test_convert.py:427``)."""
 
@@ -80,10 +81,12 @@ def test_predict_serves_the_trainers_checkpoint(trained, tmp_cwd):
 
 
 def test_a_directory_without_the_ports_state_raises_naming_t8(tmp_path):
+    """T8 is done: a JAX checkpoint directory is read; an empty directory is
+    no checkpoint of either kind and raises."""
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP T8"):
+    with pytest.raises(FileNotFoundError, match="is no checkpoint"):
         predict.build_model("conv3d", _config(), checkpoint=str(tmp_path / "orbax"))
-    with pytest.raises(NotImplementedError, match="ROADMAP T8"):
+    with pytest.raises(FileNotFoundError, match="is no checkpoint"):
         predict.run(_config(), "conv3d", checkpoint=str(tmp_path / "orbax"), n_batches=1,
                     out=str(tmp_path / "f.csv"), device="cpu")
 
