@@ -1311,8 +1311,10 @@ def phase_train(device, bandwidth, flops_peak):
                 f"{np.median(gaps):.4f} ms per step (median), {rate:.2f} train examples/s; peak device memory "
                 f"{peak / 2**30:.3f} GiB")
             rows, results = _check_train_csvs(logger.log_dir, f"{tmp}/results_epoch_0.csv", TRAIN_BATCHES, VAL_BATCHES)
+            step_span = trainer.profiler.spans["train.step"]
+            check(step_span.count == TRAIN_BATCHES, f"{step_span.count} train.step spans, expected {TRAIN_BATCHES}")
             log(f"[train] metrics.csv {rows} rows (finite per-step and *_epoch rows); results_epoch_0.csv "
-                f"{results} rows; {trainer.profiler.summary().splitlines()[1].strip()}")
+                f"{results} rows; train.step span: {step_span.count} steps, {step_span.host_s:.3f} s on the host")
 
             # (c) round trip of `last` into a fresh trainer
             last = f"{tmp}/ck/last"

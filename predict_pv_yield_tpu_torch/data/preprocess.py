@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from predict_pv_yield_tpu_torch import tracing
 from predict_pv_yield_tpu_torch.consts import SAT_MEAN, SAT_STD, SAT_VARIABLE_NAMES
 from predict_pv_yield_tpu_torch.data.batch import Batch
 
@@ -96,8 +97,13 @@ def preprocess_batch(
     satellite group only; the HRV group lies on its own finer grid and takes
     ``hrv_crop``. Without ``channel_names`` the channels are inferred from
     their count: 12 → the full HRV-first list, fewer → the non-HRV channels
-    in order.
+    in order. Recorded as the span ``decode``.
     """
+    with tracing.span("decode"):
+        return _preprocess_batch(batch, channel_names, crop, hrv_crop)
+
+
+def _preprocess_batch(batch: Batch, channel_names, crop: Optional[int], hrv_crop: Optional[int]) -> Batch:
     if batch.hrvsatellite.data is not None:
         batch = batch.replace(hrvsatellite=_decode_group(batch.hrvsatellite, ["HRV"], hrv_crop))
     sat = batch.satellite.data

@@ -35,6 +35,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from predict_pv_yield_tpu_torch import tracing
 from predict_pv_yield_tpu_torch.convert import load_lightning_checkpoint
 from predict_pv_yield_tpu_torch.data.batch import Batch
 from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
@@ -103,6 +104,9 @@ def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_
     memory and sent with ``non_blocking`` copies on a stream of their own,
     so the next batch's copy overlaps the current batch's step; the compute
     stream waits for a batch's copy only when the batch is yielded.
+
+    Spans (``tracing``): ``loader.next``, ``h2d.pin``, ``h2d.copy`` with the
+    counter ``h2d.bytes``, and the compute stream's ``h2d.wait``.
     """
     depth = max(1, int(depth))
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -115,7 +119,8 @@ def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_
     while True:
         while iterator is not None and len(queue) < depth:
             try:
-                item = next(iterator)
+                with tracing.span("loader.next", device=False):
+                    item = next(iterator)
             except StopIteration:
                 iterator = None
                 break
@@ -123,15 +128,27 @@ def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_
             host = [Batch.from_host(x) for x in item] if group else Batch.from_host(item)
             if stream is None:
                 sent = Batch.stack([numeric(h) for h in host]) if group else numeric(host)
-                queue.append((host, sent.to(device), None))
+                with tracing.span("h2d.copy"):
+                    moved = sent.to(device)
+                tracing.count("h2d.bytes", sum(leaf.nbytes for leaf in sent.leaves()))
+                queue.append((host, moved, None))
                 continue
             with torch.cuda.stream(stream):
-                if group:
-                    pinned = Batch.stack([numeric(h) for h in host], pin_memory=True)
-                else:
-                    pinned = numeric(host).pin_memory()
-                moved = pinned.to(device, non_blocking=True)
-                ready = torch.cuda.Event()
+                with tracing.span("h2d.pin", device=False):
+                    if group:
+                        pinned = Batch.stack([numeric(h) for h in host], pin_memory=True)
+                    else:
+                        pinned = numeric(host).pin_memory()
+                # allocated before the copy span, so that its device time is
+                # the transfer's and not the allocator's
+                moved = pinned.map(lambda name, x: torch.empty_like(x, device=device))
+                with tracing.span("h2d.copy", stream):
+                    for target, leaf in zip(moved.leaves(), pinned.leaves()):
+                        target.copy_(leaf, non_blocking=True)
+                tracing.count("h2d.bytes", sum(leaf.nbytes for leaf in pinned.leaves()))
+                # a timing event, so that the compute stream's wait for it
+                # can be timed (``h2d.wait``)
+                ready = torch.cuda.Event(enable_timing=True)
                 ready.record(stream)
             queue.append((host, moved, ready))
         if not queue:
@@ -139,6 +156,7 @@ def iter_batches(loader: Iterable, device: torch.device, depth: int = _PREFETCH_
         host, moved, ready = queue.popleft()
         if ready is not None:
             current = torch.cuda.current_stream(device)
+            tracing.wait("h2d.wait", ready, current)
             current.wait_event(ready)
             for leaf in moved.leaves():
                 # allocated on the copy stream, used on the compute stream
@@ -150,16 +168,19 @@ def predict(model, loader: Iterable, device="cuda") -> List[np.ndarray]:
     """The model's forecasts for every batch of ``loader``: one host numpy
     ``y_hat`` (batch_size, forecast_len) per batch. The model is moved to
     ``device``; the forecasts come back to the host after the last batch."""
-    device = resolve_device(device)
-    model = model.to(device).eval()
-    channel_names = channel_names_of(loader)
-    weighted = WeightedLosses(forecast_length=model.forecast_len, device=device)
-    outputs = []
-    with torch.inference_mode(), full_fp32():
-        for _, batch in iter_batches(loader, device):
-            _, _, _, y_hat = eval_step(model, batch, channel_names, weighted)
-            outputs.append(y_hat)
-    return [y_hat.cpu().numpy() for y_hat in outputs]
+    with tracing.span("predict.round", device=False):
+        device = resolve_device(device)
+        model = model.to(device).eval()
+        channel_names = channel_names_of(loader)
+        weighted = WeightedLosses(forecast_length=model.forecast_len, device=device)
+        outputs = []
+        with torch.inference_mode(), full_fp32():
+            for _, batch in iter_batches(loader, device):
+                with tracing.span("predict.forward"):
+                    _, _, _, y_hat = eval_step(model, batch, channel_names, weighted)
+                outputs.append(y_hat)
+        with tracing.span("predict.to_host", device=False):
+            return [y_hat.cpu().numpy() for y_hat in outputs]
 
 
 def fake_loader(model, n_batches: int) -> FakeDataset:

@@ -60,8 +60,12 @@ The rest of the JAX engine's surface:
 * ``overfit_batches``, ``reload_dataloaders_every_epoch``, ``debug_nans``
   (``FloatingPointError`` at the first non-finite loss or gradient, naming
   the step and the first parameter, module output or gradient at fault;
-  after each group with k > 1), ``profiler="jax"`` (a device trace of the
-  fit, written by ``torch.profiler``), and validation plots.
+  after each group with k > 1), ``profiler="simple"`` (``fit``, ``validate``
+  and ``test`` inside ``tracing.recording()``: each span's count, host and
+  host self seconds, logged at the end and kept in ``Trainer.profiler``),
+  ``profiler="jax"`` (that report, and a device trace of the fit written by
+  ``torch.profiler``, in which the spans are ranges on the kernels' clock
+  and are timed on the device as well), and validation plots.
 
 Several ranks (``torchrun``, ``parallel/distributed.py``) train as the
 JAX engine's mesh does, with the collectives written out (``parallel/``):
@@ -94,20 +98,18 @@ The Lightning-compat keywords the JAX engine ignores are ignored here too.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import math
 import os
 import tempfile
 import time
-from collections import defaultdict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from predict_pv_yield_tpu_torch import convert
+from predict_pv_yield_tpu_torch import convert, tracing
 from predict_pv_yield_tpu_torch.data.batch import Batch, as_batch
 from predict_pv_yield_tpu_torch.losses import WeightedLosses
 from predict_pv_yield_tpu_torch.models.base import is_bf16
@@ -175,31 +177,6 @@ def _as_logger_collection(logger) -> LoggerCollection:
     if isinstance(logger, (list, tuple)):
         return LoggerCollection(list(logger))
     return LoggerCollection([logger])
-
-
-class _SimpleProfiler:
-    """Per-phase host wall time, reported at the end of ``fit``. On the card
-    a step's phase times its dispatch, not its device work."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def time(self, phase: str):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[phase] += time.perf_counter() - start
-            self.counts[phase] += 1
-
-    def summary(self) -> str:
-        lines = ["Profiler report (phase | total s | calls | mean ms)"]
-        for phase in sorted(self.totals, key=self.totals.get, reverse=True):
-            total, count = self.totals[phase], self.counts[phase]
-            lines.append(f"  {phase:<24} {total:10.3f} {count:8d} {1e3 * total / max(count, 1):10.2f}")
-        return "\n".join(lines)
 
 
 class Trainer:
@@ -287,7 +264,10 @@ class Trainer:
         #: fp32, with no loss scaling
         self.bf16 = is_bf16(precision)
         self.fast_dev_run = bool(fast_dev_run)
-        self.profiler = _SimpleProfiler() if profiler else None
+        #: ``profiler="simple"`` or ``"jax"``: the span report of the last
+        #: ``fit``, ``validate`` or ``test`` (``tracing.Report``; empty before
+        #: one), else None
+        self.profiler = tracing.Report() if profiler else None
         #: ``profiler="jax"``: a ``torch.profiler`` device trace of the fit
         #: in ``TRACE_DIR``
         self.device_trace = profiler == "jax"
@@ -648,27 +628,31 @@ class Trainer:
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One train step on a device batch → its metrics (0-d device
         tensors, not synchronised)."""
-        metrics, grads = self.loss_and_grads(batch)
-        capturing = self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
-        if self.debug_nans and not capturing:
-            self._check_finite(batch, metrics["NMAE"], grads)
-        if self.track_grad_norm >= 0:
-            metrics[f"grad_{self.track_grad_norm}_norm_total"] = self._grad_norm(grads)
-        if self.optimizer is not None:
-            self.apply_gradients(grads)
-        return metrics
+        with tracing.span("train.step"):
+            metrics, grads = self.loss_and_grads(batch)
+            capturing = self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+            if self.debug_nans and not capturing:
+                self._check_finite(batch, metrics["NMAE"], grads)
+            if self.track_grad_norm >= 0:
+                metrics[f"grad_{self.track_grad_norm}_norm_total"] = self._grad_norm(grads)
+            if self.optimizer is not None:
+                with tracing.span("train.optimizer"):
+                    self.apply_gradients(grads)
+            return metrics
 
     def loss_and_grads(self, batch: Batch):
         """Forward, the four metrics and the NMAE gradient of every
         trainable parameter → ``(metrics, grads)``, in full fp32 (or the
         forward in the model's bf16 autocast)."""
         with full_fp32():
-            _, _, metrics = forward_and_metrics(self._model, batch, self._satellite_channels, self._weighted)
+            with tracing.span("train.forward"):
+                _, _, metrics = forward_and_metrics(self._model, batch, self._satellite_channels, self._weighted)
             grads = []
             if self._params:
-                grads = torch.autograd.grad(metrics["NMAE"], self._params, allow_unused=True)
-                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self._params, grads)]
-                grads = self._average_gradients(grads)
+                with tracing.span("train.backward"):
+                    grads = torch.autograd.grad(metrics["NMAE"], self._params, allow_unused=True)
+                    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self._params, grads)]
+                    grads = self._average_gradients(grads)
         return {k: v.detach() for k, v in metrics.items()}, grads
 
     def _average_gradients(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -776,7 +760,8 @@ class Trainer:
         graph, static, out = entry
         for buffer, leaf in zip(static, group.leaves()):
             buffer.copy_(leaf)
-        graph.replay()
+        with tracing.span("train.graph"):
+            graph.replay()
         if self.accumulate_grad_batches > 1:
             self._mini_step = (phase + k) % self.accumulate_grad_batches
         return {name: value.clone() for name, value in out.items()}
@@ -839,13 +824,10 @@ class Trainer:
         return faults[0] if faults else None
 
     def _eval_step(self, batch: Batch):
-        with torch.no_grad(), full_fp32():
+        with tracing.span("eval.step"), torch.no_grad(), full_fp32():
             return eval_step(self._model, batch, self._satellite_channels, self._weighted)
 
     # ------------------------------------------------------------------
-    def _time_phase(self, phase: str):
-        return self.profiler.time(phase) if self.profiler else contextlib.nullcontext()
-
     def _resolve_limit(self, limit, loader) -> Optional[int]:
         """``None``/``1.0`` → the full epoch; an int ≥ 1 → a batch count; a
         float in [0, 1) → that fraction of ``len(loader)`` (0.0 → none),
@@ -866,16 +848,15 @@ class Trainer:
         return int(limit)
 
     def _host_batches(self, loader, limit: Optional[int]):
-        """At most ``limit`` batches of ``loader``, the wait for each timed
-        as ``loader_next``."""
+        """At most ``limit`` batches of ``loader`` (``iter_batches`` records
+        the wait for each as the span ``loader.next``)."""
         iterator = iter(loader)
         count = 0
         while limit is None or count < limit:
-            with self._time_phase("loader_next"):
-                try:
-                    item = next(iterator)
-                except StopIteration:
-                    return
+            try:
+                item = next(iterator)
+            except StopIteration:
+                return
             count += 1
             yield item
 
@@ -1068,8 +1049,23 @@ class Trainer:
             out["lr_find"] = self.lr_find_results
         return out
 
+    def _profiled(self, run, *args):
+        """``run(*args)``; with a ``profiler``, inside ``tracing.recording()``,
+        its span report kept in ``self.profiler`` and logged at the end."""
+        if self.profiler is None:
+            return run(*args)
+        with tracing.recording():
+            out = run(*args)
+            self.profiler = tracing.report()
+        if is_main_process():
+            log.info("%s", self.profiler.format())
+        return out
+
     def fit(self, model, datamodule=None, train_dataloaders=None, val_dataloaders=None):
-        """The training loop → ``callback_metrics``."""
+        """The training loop → ``callback_metrics`` (profiled: ``_profiled``)."""
+        return self._profiled(self._fit, model, datamodule, train_dataloaders, val_dataloaders)
+
+    def _fit(self, model, datamodule, train_dataloaders, val_dataloaders):
         train_loader, val_loader = self._resolve_loaders(datamodule, train_dataloaders, val_dataloaders)
         if train_loader is None:
             raise ValueError("fit() needs a datamodule or train_dataloaders")
@@ -1136,8 +1132,6 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_fit_end(self, model)
         self.logger.save()  # not finalize: a test pass may follow
-        if self.profiler is not None and is_main_process():
-            log.info("%s", self.profiler.summary())
         return self.callback_metrics
 
     def _start_trace(self):
@@ -1267,8 +1261,7 @@ class Trainer:
         for host, device_batch in self._iter_batches(loader, limit, self.steps_per_execution):
             group = isinstance(host, list)
             n = len(host) if group else 1
-            with self._time_phase("train_step"):
-                metrics = self.train_group(device_batch) if group else self.train_step(device_batch)
+            metrics = self.train_group(device_batch) if group else self.train_step(device_batch)
             device_metrics.append(metrics)  # (k,)-stacked for a group
             self.global_step += n
             batches_done += n
@@ -1288,8 +1281,7 @@ class Trainer:
         model.eval()
         try:
             for batch_idx, (host_batch, device_batch) in enumerate(self._iter_batches(loader, limit)):
-                with self._time_phase(f"{tag.lower()}_step"):
-                    metrics, h_mse, h_mae, y_hat = self._eval_step(device_batch)
+                metrics, h_mse, h_mae, y_hat = self._eval_step(device_batch)
                 device_metrics.append(metrics)
                 horizon_mse.append(h_mse)
                 horizon_mae.append(h_mae)
@@ -1416,6 +1408,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def validate(self, model=None, datamodule=None, dataloaders=None):
+        """One validation epoch → its metrics (profiled: ``_profiled``)."""
+        return self._profiled(self._validate, model, datamodule, dataloaders)
+
+    def _validate(self, model, datamodule, dataloaders):
         _, val_loader = self._resolve_loaders(datamodule, None, dataloaders)
         if val_loader is None and dataloaders is not None:
             val_loader = dataloaders
@@ -1453,6 +1449,10 @@ class Trainer:
         return [y_hat.cpu().numpy() for y_hat in outputs]
 
     def test(self, model=None, datamodule=None, dataloaders=None):
+        """One test epoch → its metrics (profiled: ``_profiled``)."""
+        return self._profiled(self._test, model, datamodule, dataloaders)
+
+    def _test(self, model, datamodule, dataloaders):
         datamodule = datamodule or self._datamodule
         loader = dataloaders
         if datamodule is not None:
