@@ -13,7 +13,7 @@ checkpoints read natively, resumed and served, with the rest of the tooling.
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from ``predict_pv_yield_tpu_torch/csrc``; print
      the instantiations' registers and spills from ``ptxas -v``, and fail
-     if a radius that phase 2 times spills;
+     if a weight-gradient kernel or a radius that phase 2 times spills;
   2. hold each kernel to its plain PyTorch version on the card, at the shapes
      the flow path gives it and at edge shapes, and time kernel, plain
      version and the cuDNN yardstick against the card's bound. Times are the
@@ -36,7 +36,11 @@ Phases (any failure exits non-zero):
      with its top kernels, ``predict`` wall time per batch, examples/s, the
      device's busy share, and the steady rate of 24 more batches;
   7. train: the same model through the port's ``Trainer`` (TF32 off):
-     (a) one step at batch 4 on the card against the same step on the CPU
+     (w) the towers' weight-gradient kernel (``csrc/conv3d_wgrad.cu``) at
+     the twelve tower shapes of a batch-32 step and at edge shapes, against
+     its plain version (im2col + matmul) and cuDNN's weight gradient
+     (``library_ms``), two launches bit-equal, device ms against the fp32
+     bound; (a) one step at batch 4 on the card against the same step on the CPU
      from the same seed-0 weights (NMAE ≤ 2e-6; every gradient within 3 ×
      the spread of the CPU's two fp32 implementations, at least 1e-4, of
      its largest entry; parameters after the Adam step ≤ 1e-3);
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero):
      generated before timing, with ``ModelCheckpoint``, ``EarlyStopping``
      and ``CSVLogger``: the train step's device ms and top kernels, its
      bound from the layer shapes, the median steady examples/s of the last
-     16 steps, the busy share of a traced fit, and the CSVs checked; (c)
+     16 steps, the busy share of a traced fit, the CSVs checked, and the
+     weight-gradient kernel's launches in the fit (> 0); (c)
      ``last`` loaded into a fresh trainer: parameters, Adam moments and
      step and the loop counters bit-equal, the next step's NMAE within
      1e-6; (d) ``train(config)`` on a literal of the composed
@@ -280,6 +285,11 @@ SERVE_BATCHES = 8
 STEADY_REPEATS = 4  # the steady serve rate runs the 8 batches 4 times over
 SERVE_TOL = 1e-4  # card vs CPU forward, tests/test_convert.py:427
 
+#: the weight-gradient kernel against its plain version (im2col + one
+#: matmul a chunk): max |kernel − plain| ≤ WGRAD_REL_TOL · max |plain|, or
+#: WGRAD_SPREAD_FACTOR × cuDNN's own distance from the plain version where
+#: that is larger (both sum ~10^5–10^6 fp32 products per entry, in other orders)
+WGRAD_REL_TOL, WGRAD_SPREAD_FACTOR = 1e-5, 3
 PARITY_BATCH = 4  # (a): the CPU side of the one-step parity stays cheap
 STEP_LOSS_TOL, GRAD_REL_TOL, STEP_PARAM_TOL = 2e-6, 1e-4, 1e-3  # 1e-3 = 2·lr: Adam moves ~0 gradients by ±lr
 GRAD_SPREAD_FACTOR = 3  # card gradients vs CPU: ≤ 3 × the CPU's own fp32 spread (see _train_parity)
@@ -553,10 +563,39 @@ def check(condition: bool, message: str) -> None:
         raise AssertionError(message)
 
 
+def _build_wgrad():
+    """Build ``csrc/conv3d_wgrad.cu``; print each kernel's registers and
+    spills (``ptxas -v``) and fail if one spills."""
+    from predict_pv_yield_tpu_torch import _build
+    from predict_pv_yield_tpu_torch.ops import conv3d_wgrad
+
+    start = time.perf_counter()
+    conv3d_wgrad._library()
+    seconds = time.perf_counter() - start
+    info = _build.build_info["conv3d_wgrad"]
+    log(f"[build] conv3d_wgrad.cu: {seconds:.2f} s (nvcc {info['seconds']:.2f} s)")
+    if info["log"]:  # built, not reused: ptxas -v for each kernel
+        kernels = {}
+        for line in info["log"].splitlines():
+            found = re.search(r"Compiling entry function '(\S*conv3d_wgrad\w*)'", line)
+            if found:
+                width = re.search(r"ILi(\d+)E", found.group(1))
+                name = f"main<{width.group(1)}>" if width else "reduce"
+                kernels[name] = {"registers": 0, "spill_bytes": 0}
+            elif kernels and "spill" in line:
+                kernels[name]["spill_bytes"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            elif kernels and "Used" in line:
+                kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        log(f"[build]   conv3d_wgrad kernels (ptxas): {kernels}")
+        check(len(kernels) == 3, f"ptxas reported {sorted(kernels)}, expected main<16>, main<32>, reduce")
+        check(not any(v["spill_bytes"] for v in kernels.values()), "a conv3d_wgrad kernel spills")
+
+
 def phase_build():
     from predict_pv_yield_tpu_torch import _build
     from predict_pv_yield_tpu_torch.ops import sep_blur
 
+    _build_wgrad()
     start = time.perf_counter()
     sep_blur._library()
     seconds = time.perf_counter() - start
@@ -1238,6 +1277,100 @@ def _check_train_csvs(log_dir, results_csv, train_steps, val_batches):
     return len(rows), len(results) - 1
 
 
+def _wgrad_cases(model, batch_size=32):
+    """(label, x shape, padding) of the twelve tower convolutions of one
+    train step of ``model`` at ``batch_size``."""
+    towers = (("sat_conv", model.sat_time_steps, model.image_size_pixels),
+              ("nwp_conv", model.seq_lens.seq_len_60, model.nwp_image_size_pixels))
+    cases = []
+    for prefix, time_steps, size in towers:
+        for i in range(model.number_of_conv3d_layers):
+            conv = getattr(model, f"{prefix}{i}")
+            cases.append((f"{prefix}{i}", (batch_size, conv.in_channels, time_steps, size, size), conv.padding))
+            size -= 2
+    return cases
+
+
+def _wgrad_kernel(device, flops_peak):
+    """7 (w): the weight-gradient kernel at the twelve tower shapes of the
+    train step (batch 32) and at edge shapes, against its plain version and
+    cuDNN's weight gradient; two launches bit-equal; device times against
+    the fp32 bound → per-shape rows."""
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.ops import conv3d_wgrad as wgrad
+    from predict_pv_yield_tpu_torch.utils import full_fp32
+
+    generator = torch.Generator(device=device).manual_seed(0)
+
+    def inputs(shape, co, padding):
+        x = torch.randn(shape, generator=generator, device=device)
+        out = [shape[0], co, *(size + 2 * p - 2 for size, p in zip(shape[2:], padding))]
+        grad = torch.randn(out, generator=generator, device=device)
+        weight = torch.randn((co, shape[1], 3, 3, 3), generator=generator, device=device)
+        return x, grad, weight
+
+    def library(x, grad, weight, padding):
+        """cuDNN's weight and bias gradients (the parent's path), TF32 off."""
+        with full_fp32():
+            return torch.ops.aten.convolution_backward(grad, x, weight, [weight.shape[0]], (1, 1, 1), padding,
+                                                       (1, 1, 1), False, (0, 0, 0), 1, (False, True, True))[1:]
+
+    def held(label, x, grad, weight, padding):
+        kernel = wgrad.conv3d_wgrad(x, grad, padding=padding)
+        again = wgrad.conv3d_wgrad(x, grad, padding=padding)
+        plain = wgrad.conv3d_wgrad_reference(x, grad, padding)
+        cudnn = library(x, grad, weight, padding)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(kernel, again)), f"conv3d_wgrad {label}: two launches differ")
+        errs, spreads = [], []
+        for mine, ref, lib in zip(kernel, plain, cudnn):
+            scale = float(ref.abs().max())
+            errs.append(float((mine - ref).abs().max()) / scale)
+            spreads.append(float((lib - ref).abs().max()) / scale)
+        tol = max(WGRAD_REL_TOL, WGRAD_SPREAD_FACTOR * max(spreads))
+        check(max(errs) <= tol, f"conv3d_wgrad {label} {tuple(x.shape)}: max|kernel-plain| / max|plain| "
+                                f"(dW, db) {errs} > {tol:.3e} (cuDNN's: {spreads})")
+        return errs, spreads
+
+    # edge shapes: full padding, one input channel, two chunks of input and
+    # of output channels, a row wider than one tile, a single row
+    for label, shape, co, padding in [("pad 1,1,1", (2, 32, 3, 7, 9), 32, (1, 1, 1)),
+                                      ("c_in 1", (3, 1, 4, 9, 9), 32, (1, 0, 0)),
+                                      ("c_in 40, c_out 40", (2, 40, 3, 6, 70), 40, (0, 1, 1)),
+                                      ("c_out 8, wide", (2, 11, 3, 5, 150), 8, (1, 0, 0)),
+                                      ("one row", (2, 16, 3, 3, 5), 32, (0, 0, 0))]:
+        errs, spreads = held(label, *inputs(shape, co, padding), padding)
+        log(f"[train] (w) {label} {shape} -> c_out {co}, padding {padding}: max err (dW, db) "
+            f"{errs[0]:.3e}, {errs[1]:.3e} of max |plain|; cuDNN {spreads[0]:.3e}, {spreads[1]:.3e}")
+
+    model = Model(**{k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"})
+    rows = []
+    for label, shape, padding in _wgrad_cases(model):
+        x, grad, weight = inputs(shape, model.conv3d_channels, padding)
+        errs, spreads = held(label, x, grad, weight, padding)
+        flops = 2 * weight.numel() * grad[:, 0].numel()
+        row = {
+            "case": label, "shape": list(shape), "padding": list(padding), "gflop": flops / 1e9,
+            "max_err_dw": errs[0], "max_err_db": errs[1], "cudnn_err_dw": spreads[0],
+            "ms": device_ms(lambda: wgrad.conv3d_wgrad(x, grad, padding=padding), kernel="conv3d_wgrad_kernel",
+                            calls=20),
+            "call_device_ms": device_ms(lambda: wgrad.conv3d_wgrad(x, grad, padding=padding), calls=20),
+            "plain_ms": device_ms(lambda: wgrad.conv3d_wgrad_reference(x, grad, padding), calls=5),
+            "library_ms": device_ms(lambda: library(x, grad, weight, padding), calls=10),
+            "bound_ms": flops / flops_peak * 1e3,
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["call_device_ms"]
+        rows.append(row)
+        log("[train] (w) " + json.dumps(row))
+        del x, grad, weight
+    total = {key: sum(r[key] for r in rows) for key in ("gflop", "ms", "call_device_ms", "plain_ms",
+                                                           "library_ms", "bound_ms")}
+    total["share_of_bound"] = total["bound_ms"] / total["call_device_ms"]
+    total["library_share_of_bound"] = total["bound_ms"] / total["library_ms"]
+    log(f"[train] (w) the twelve tower shapes: {json.dumps(total)}")
+    return rows, total
+
+
 def phase_train(device, bandwidth, flops_peak):
     """The conv3d_sat_nwp training path at the full width of its YAML."""
     import copy
@@ -1248,6 +1381,7 @@ def phase_train(device, bandwidth, flops_peak):
     from predict_pv_yield_tpu_torch.data.batch import Batch
     from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
     from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.ops import conv3d_wgrad as wgrad
     from predict_pv_yield_tpu_torch.ops import sep_blur as blur
     from predict_pv_yield_tpu_torch.training.callbacks import EarlyStopping, ModelCheckpoint, load_state
     from predict_pv_yield_tpu_torch.training.engine import Trainer
@@ -1255,6 +1389,7 @@ def phase_train(device, bandwidth, flops_peak):
     from predict_pv_yield_tpu_torch.training.pipeline import train
 
     blur.launches = 0
+    wgrad_rows, wgrad_total = _wgrad_kernel(device, flops_peak)
     _train_parity(device)
 
     config = {k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"}
@@ -1302,8 +1437,11 @@ def phase_train(device, bandwidth, flops_peak):
                               callbacks=[ModelCheckpoint(dirpath=f"{tmp}/ck"), stopper])
             trainer.setup(Model(**config))
             torch.cuda.reset_peak_memory_stats(device)
+            wgrad.launches = 0
             fit_seconds, steps, gaps, rate = _timed_fit(trainer, train_dataloaders=train_batches,
                                                         val_dataloaders=val_batches)
+            fit_launches = wgrad.launches
+            check(fit_launches > 0, "the fit's backward did not go through conv3d_wgrad")
             peak = torch.cuda.max_memory_allocated(device)
             check(trainer.global_step == TRAIN_BATCHES and steps == TRAIN_BATCHES, "train steps")
             log(f"[train] fit over {TRAIN_BATCHES}x32 train + {VAL_BATCHES}x32 validation batches (copies, "
@@ -1314,7 +1452,8 @@ def phase_train(device, bandwidth, flops_peak):
             step_span = trainer.profiler.spans["train.step"]
             check(step_span.count == TRAIN_BATCHES, f"{step_span.count} train.step spans, expected {TRAIN_BATCHES}")
             log(f"[train] metrics.csv {rows} rows (finite per-step and *_epoch rows); results_epoch_0.csv "
-                f"{results} rows; train.step span: {step_span.count} steps, {step_span.host_s:.3f} s on the host")
+                f"{results} rows; train.step span: {step_span.count} steps, {step_span.host_s:.3f} s on the host; "
+                f"conv3d_wgrad launched {fit_launches} times ({fit_launches / steps:.2f} a step; 12 tower layers)")
 
             # (c) round trip of `last` into a fresh trainer
             last = f"{tmp}/ck/last"
@@ -1370,7 +1509,8 @@ def phase_train(device, bandwidth, flops_peak):
     check(blur.launches == 0, "the train path launched sep_blur")
     return {"train_step_ms": step_ms, "train_step_deterministic_ms": deterministic_ms,
             "train_bound_ms": bound_ms, "train_examples_per_s": rate,
-            "train_busy_share": busy, "train_fit_seconds": fit_seconds, "train_peak_bytes": peak}
+            "train_busy_share": busy, "train_fit_seconds": fit_seconds, "train_peak_bytes": peak,
+            "wgrad_rows": wgrad_rows, "wgrad_total": wgrad_total, "wgrad_fit_launches": fit_launches}
 
 
 def _stream_archive(root, seed=0, compressor="zlib"):
@@ -4655,6 +4795,18 @@ def main() -> int:
         "bound_by": headline["bound_by"],
         "library_ms": headline["library_ms"],
         "call_ms": headline["call_ms"],
+    }, {
+        "name": "conv3d_wgrad",
+        "route": "cuda",
+        "source": "predict_pv_yield_tpu_torch/csrc/conv3d_wgrad.cu",
+        "replaces": None,
+        "launches_in_fit": trained["wgrad_fit_launches"],
+        "max_err": max(max(r["max_err_dw"], r["max_err_db"]) for r in trained["wgrad_rows"]),
+        "ms": trained["wgrad_total"]["call_device_ms"],
+        "plain_ms": trained["wgrad_total"]["plain_ms"],
+        "bound_ms": trained["wgrad_total"]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": trained["wgrad_total"]["library_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
                     **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats,

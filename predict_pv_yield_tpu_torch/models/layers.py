@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from predict_pv_yield_tpu_torch.ops.conv3d_wgrad import conv3d_wgrad
+
 
 def init_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Re-draw every parameter from ``generator``: conv and linear weights
@@ -84,17 +86,66 @@ def tower_names(prefix: str, num_layers: int) -> Tuple[str, ...]:
     return tuple(f"{prefix}{i}" for i in range(num_layers))
 
 
+def wgrad_kernel_path(device_type: str, dtype: torch.dtype, weight: torch.Tensor) -> bool:
+    """Whether a tower convolution of an input on ``device_type`` of
+    ``dtype`` sends its weight gradient to the CUDA kernel
+    (``ops/conv3d_wgrad.py``): on the card, computing in fp32 (no autocast
+    to a narrower type: cuDNN's tensor cores are the tool there), with a
+    weight gradient to take."""
+    if device_type != "cuda" or dtype != torch.float32 or weight.dtype != torch.float32:
+        return False
+    if not (torch.is_grad_enabled() and weight.requires_grad):
+        return False
+    return not torch.is_autocast_enabled(device_type) or torch.get_autocast_dtype(device_type) == torch.float32
+
+
+class _TowerConvFunction(torch.autograd.Function):
+    """``F.conv3d`` forward; backward: the input's gradient from
+    ``aten::convolution_backward`` (cuDNN) where it is needed, the weight's
+    and the bias's from the CUDA kernel."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], padding) -> torch.Tensor:
+        ctx.save_for_backward(x, weight)
+        ctx.padding = padding
+        return F.conv3d(x, weight, bias, padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, weight = ctx.saved_tensors
+        grad = grad.contiguous()
+        grad_x = None
+        if ctx.needs_input_grad[0]:
+            grad_x = torch.ops.aten.convolution_backward(
+                grad, x, weight, None, (1, 1, 1), ctx.padding, (1, 1, 1), False, (0, 0, 0), 1, (True, False, False)
+            )[0]
+        grad_weight, grad_bias = conv3d_wgrad(x, grad, padding=ctx.padding)
+        return grad_x, grad_weight, grad_bias if ctx.needs_input_grad[2] else None, None
+
+
+class TowerConv3d(nn.Conv3d):
+    """A tower's 3×3×3 ``nn.Conv3d`` (same parameters, names and
+    ``state_dict``) whose weight and bias gradients take the hand-written
+    CUDA kernel where :func:`wgrad_kernel_path` says so; every other case
+    (the CPU, a bf16 autocast, no gradient) is ``nn.Conv3d``'s own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if wgrad_kernel_path(x.device.type, x.dtype, self.weight):
+            return _TowerConvFunction.apply(x.contiguous(), self.weight, self.bias, self.padding)
+        return super().forward(x)
+
+
 def add_conv3d_tower(
     module: nn.Module, names: Sequence[str], in_channels: int, channels: int, pad_time: bool = False
 ) -> None:
-    """Register one 3×3×3 ``Conv3d`` on ``module`` per name in ``names``
-    (the reference's flat names, e.g. :func:`tower_names`, so state_dicts
-    load with ``strict=True``). ``pad_time`` pads time only
+    """Register one 3×3×3 :class:`TowerConv3d` on ``module`` per name in
+    ``names`` (the reference's flat names, e.g. :func:`tower_names`, so
+    state_dicts load with ``strict=True``). ``pad_time`` pads time only
     (``padding=(1, 0, 0)``: T kept, H and W valid), else nothing is padded.
     """
     padding = (1, 0, 0) if pad_time else 0
     for i, name in enumerate(names):
-        module.add_module(name, nn.Conv3d(in_channels if i == 0 else channels, channels, 3, padding=padding))
+        module.add_module(name, TowerConv3d(in_channels if i == 0 else channels, channels, 3, padding=padding))
 
 
 def conv3d_tower(module: nn.Module, names: Sequence[str], x: torch.Tensor) -> torch.Tensor:
