@@ -1,5 +1,7 @@
 """The 3-D convolutions' share of their roofline in the forecast forward:
-as ``conv3d_roofline.train``, forward only, per traced batch."""
+as ``conv3d_roofline.train``, forward only, per traced batch, over the
+device time of the kernels under the aten convolution ops and the
+program's ``conv.<part>`` spans (``Trace.conv_s``)."""
 
 
 def read(context):

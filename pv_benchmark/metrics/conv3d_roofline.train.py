@@ -1,7 +1,10 @@
 """The 3-D convolutions' share of their roofline in a train step: the
 larger of their operations over the peak and their bytes over the
-bandwidth, for the traced steps, over the device time the trace gives the
-aten convolution ops and their backward (whatever kernels run under them)."""
+bandwidth (forward, weight and data gradients), for the traced steps, over
+the device time of every kernel that does that work, whatever implements
+it: the kernels under the aten convolution ops and their backward, and
+those under the program's ``conv.<part>`` spans around its hand-written
+convolution kernels, each kernel once (``Trace.conv_s``)."""
 
 
 def read(context):

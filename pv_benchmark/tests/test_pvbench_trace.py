@@ -39,14 +39,88 @@ def test_reduce():
     events = [conv, nested, event("cudaLaunchKernel", 1.0, 2.0, parent=conv), event("cudaGraphLaunch", 3.0, 4.0),
               event("cudaMemcpyAsync", 4.0, 5.0),
               event("k1", 10.0, 30.0, device=CUDA), event("k2", 60.0, 70.0, device=CUDA),
-              event("aten::copy_", 35.0, 55.0)]
+              event("aten::copy_", 35.0, 55.0), event("convert", 56.0, 58.0, device_time=7.0)]
     t = trace.reduce(events, wall_s=100e-6, units=2, window_us=(0.0, 100.0))
     assert t.busy_s == pytest.approx(30e-6) and t.device_s == pytest.approx(30e-6)
+    # aten conv ops alone: the outermost one's device time, as before; `convert` is no conv
     assert t.launches == 2 and t.conv_s == pytest.approx(25e-6)
     assert t.device_ops[0] == ("k1", pytest.approx(20e-6))
     gaps = dict(t.idle_gaps)
     assert gaps["aten::copy_"] == pytest.approx(30e-6)  # 30 to 60 µs, the copy under it at 45
     assert gaps["aten::convolution"] == pytest.approx(10e-6)  # 0 to 10 µs
+
+
+def _conv_events(case):
+    """A backward's 25 µs of convolution kernels as the trace shows them when
+    ``case`` implements them; the outermost event holds the kernels' time."""
+    if case == "aten":
+        return [event("aten::convolution_backward", 0.0, 30.0, device_time=25.0)]
+    if case == "span":
+        return [event("conv.dgrad", 0.0, 30.0, device_time=25.0)]
+    outer_name = {"span_in_aten": "aten::convolution_backward", "span_in_span": "conv.dgrad"}[case]
+    outer = event(outer_name, 0.0, 30.0, device_time=25.0)
+    inner = event("conv.wgrad", 10.0, 20.0, parent=outer, device_time=10.0)
+    grand = event("aten::convolution", 12.0, 14.0, parent=inner, device_time=4.0)
+    return [outer, inner, grand]
+
+
+def _reduced(events, units=2):
+    return trace.reduce(events, wall_s=100e-6, units=units, window_us=(0.0, 100.0))
+
+
+@pytest.mark.parametrize("case", ["aten", "span", "span_in_aten", "span_in_span"])
+def test_conv_time_whatever_implements_it(case):
+    """The same kernels give the same conv time and roofline share under an
+    aten conv op, under a ``conv.*`` span and under a span inside a counted
+    event (counted once)."""
+    t = _reduced(_conv_events(case))
+    assert t.conv_s == pytest.approx(25e-6)
+    assert read("conv3d_roofline.train", _context("train", t)) == pytest.approx(
+        read("conv3d_roofline.train", _context("train", _reduced(_conv_events("aten")))))
+
+
+@pytest.mark.parametrize("name", ["convert", "conv", "conv_wgrad", "aten::conv_depthwise2d", "pv.conv.wgrad"])
+def test_conv_time_needs_a_conv_op_or_span(name):
+    t = _reduced([event(name, 0.0, 30.0, device_time=25.0)])
+    assert t.conv_s == 0.0
+    assert read("conv3d_roofline.train", _context("train", t)) is None
+
+
+def test_serve_conv_time_under_a_forward_span():
+    """A serve trace whose forward convolutions run under ``conv.fprop``
+    reads what the same trace under ``aten::convolution`` does."""
+    def serve(name):
+        predict = event("predict.forward", 0.0, 40.0)
+        return _reduced([predict, event(name, 1.0, 30.0, parent=predict, device_time=25.0)], units=64)
+
+    by_span = read("conv3d_roofline.serve", _context("serve", serve("conv.fprop")))
+    assert by_span is not None
+    assert by_span == pytest.approx(read("conv3d_roofline.serve", _context("serve", serve("aten::convolution"))))
+
+
+def test_crosscheck_parts():
+    """The on-card cross-check splits the counted conv time into the aten ops'
+    and the spans' parts (each kernel once), sums device events by name, and
+    sorts the kernels the counted events launched into conv-named and other."""
+    from pv_benchmark import conv_crosscheck
+
+    kernel = conv_crosscheck.torch.autograd.profiler_util.Kernel
+    outer, inner, grand = _conv_events("span_in_aten")
+    outer.kernels = [kernel("sm80_xmma_dgrad_implicit_gemm_f32", 0, 8.0)]
+    inner.kernels = [kernel("conv3d_wgrad_kernel<32>", 0, 6.0)]
+    grand.kernels = [kernel("elementwise_kernel<add>", 0, 1.0)]
+    outer.cpu_children, inner.cpu_children, grand.cpu_children = [inner], [grand], []
+    span = event("conv.wgrad", 40.0, 50.0, device_time=6.0)
+    events = [outer, inner, grand, span,
+              event("sm80_xmma_dgrad_implicit_gemm_f32", 0.0, 8.0, device=CUDA),
+              event("conv3d_wgrad_kernel<32>", 40.0, 46.0, device=CUDA),
+              event("conv3d_wgrad_kernel<32>", 50.0, 56.0, device=CUDA),
+              event("multi_tensor_apply_kernel", 60.0, 70.0, device=CUDA)]
+    got, other = conv_crosscheck.parts(events)
+    assert got["aten_s"] == pytest.approx(25e-6) and got["spans_s"] == pytest.approx(6e-6)
+    assert got["kernels_dgrad_s"] == pytest.approx(8e-6) and got["kernels_hand_written_s"] == pytest.approx(12e-6)
+    assert got["counted_dgrad_s"] == pytest.approx(8e-6) and got["counted_hand_written_s"] == pytest.approx(6e-6)
+    assert "kernels_cudnn_wgrad_s" not in got and other == {"elementwise_kernel<add>": pytest.approx(1e-6)}
 
 
 def _context(kind, trace_, **work):

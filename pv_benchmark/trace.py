@@ -25,6 +25,10 @@ ATTEMPTS = 3
 LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch)")
 #: the aten ops whose device time is the 3-D convolutions', forward and backward
 CONV_OPS = ("aten::convolution", "aten::convolution_backward")
+#: the prefix of the program's spans around its hand-written convolution
+#: kernels (``conv.wgrad``; a data gradient or forward would be ``conv.dgrad``
+#: or ``conv.fprop``): their device time is the convolutions' too
+CONV_SPAN_PREFIX = "conv."
 BREAKDOWN_ENTRIES = 10
 NAME_CHARS = 160
 
@@ -36,7 +40,7 @@ class Trace:
     busy_s: float  # union of the kernel and copy intervals
     device_s: float  # sum of the kernel and copy durations
     launches: int
-    conv_s: float  # device time under CONV_OPS
+    conv_s: float  # device time under CONV_OPS and the CONV_SPAN_PREFIX spans, each kernel once
     device_ops: List[Tuple[str, float]] = field(default_factory=list)
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
 
@@ -93,6 +97,25 @@ def host_names(host: List[Tuple[float, float, int, str]], points: List[float]) -
     return names
 
 
+def is_conv(name: str) -> bool:
+    """Whether the device time under a host event of this name is the 3-D
+    convolutions': an aten conv op or one of the program's ``conv.*`` spans."""
+    return name in CONV_OPS or name.startswith(CONV_SPAN_PREFIX)
+
+
+def counted_conv(event) -> bool:
+    """Whether ``conv_s`` counts this host event's device time: a conv event
+    with no conv event above it, so that each kernel counts once."""
+    if not is_conv(event.name):
+        return False
+    parent = event.cpu_parent
+    while parent is not None:
+        if is_conv(parent.name):
+            return False
+        parent = parent.cpu_parent
+    return True
+
+
 def reduce(events, wall_s: float, units: int, window_us: Tuple[float, float]) -> Trace:
     """The profiler's events of one traced stretch → a :class:`Trace`."""
     device, host, launches, conv_us = [], [], 0, 0.0
@@ -108,13 +131,8 @@ def reduce(events, wall_s: float, units: int, window_us: Tuple[float, float]) ->
         host.append((start, end, e.thread, e.name[:NAME_CHARS]))
         if LAUNCH.match(e.name):
             launches += 1
-        if e.name in CONV_OPS:
-            parent, nested = e.cpu_parent, False
-            while parent is not None:
-                nested = nested or parent.name in CONV_OPS
-                parent = parent.cpu_parent
-            if not nested:
-                conv_us += e.device_time_total
+        if counted_conv(e):
+            conv_us += e.device_time_total
     device.sort()
     host.sort()
     lo, hi = window_us
