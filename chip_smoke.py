@@ -13,7 +13,8 @@ checkpoints read natively, resumed and served, with the rest of the tooling.
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from ``predict_pv_yield_tpu_torch/csrc``; print
      the instantiations' registers and spills from ``ptxas -v``, and fail
-     if a weight-gradient kernel or a radius that phase 2 times spills;
+     if a weight- or data-gradient kernel or a radius that phase 2 times
+     spills;
   2. hold each kernel to its plain PyTorch version on the card, at the shapes
      the flow path gives it and at edge shapes, and time kernel, plain
      version and the cuDNN yardstick against the card's bound. Times are the
@@ -37,10 +38,11 @@ Phases (any failure exits non-zero):
      device's busy share, and the steady rate of 24 more batches;
   7. train: the same model through the port's ``Trainer`` (TF32 off):
      (w) the towers' weight-gradient kernel (``csrc/conv3d_wgrad.cu``) at
-     the twelve tower shapes of a batch-32 step and at edge shapes, against
-     its plain version (im2col + matmul) and cuDNN's weight gradient
-     (``library_ms``), two launches bit-equal, device ms against the fp32
-     bound; (a) one step at batch 4 on the card against the same step on the CPU
+     the twelve tower shapes of a batch-32 step and their data-gradient
+     kernel (``csrc/conv3d_dgrad.cu``) at the ten that need an input
+     gradient, each at edge shapes too, against its plain version (im2col
+     + matmul) and cuDNN's weight or data gradient (``library_ms``), two
+     launches bit-equal, device ms against the fp32 bound; (a) one step at batch 4 on the card against the same step on the CPU
      from the same seed-0 weights (NMAE ≤ 2e-6; every gradient within 3 ×
      the spread of the CPU's two fp32 implementations, at least 1e-4, of
      its largest entry; parameters after the Adam step ≤ 1e-3);
@@ -49,7 +51,8 @@ Phases (any failure exits non-zero):
      and ``CSVLogger``: the train step's device ms and top kernels, its
      bound from the layer shapes, the median steady examples/s of the last
      16 steps, the busy share of a traced fit, the CSVs checked, and the
-     weight-gradient kernel's launches in the fit (> 0); (c)
+     weight- and data-gradient kernels' launches in the fit (> 0; 12 and
+     10 a step); (c)
      ``last`` loaded into a fresh trainer: parameters, Adam moments and
      step and the loop counters bit-equal, the next step's NMAE within
      1e-6; (d) ``train(config)`` on a literal of the composed
@@ -290,6 +293,9 @@ SERVE_TOL = 1e-4  # card vs CPU forward, tests/test_convert.py:427
 #: WGRAD_SPREAD_FACTOR × cuDNN's own distance from the plain version where
 #: that is larger (both sum ~10^5–10^6 fp32 products per entry, in other orders)
 WGRAD_REL_TOL, WGRAD_SPREAD_FACTOR = 1e-5, 3
+#: the data-gradient kernel against its plain version, the same way (each
+#: entry sums 864 fp32 products of a 32-channel layer, in other orders)
+DGRAD_REL_TOL, DGRAD_SPREAD_FACTOR = 1e-5, 3
 PARITY_BATCH = 4  # (a): the CPU side of the one-step parity stays cheap
 STEP_LOSS_TOL, GRAD_REL_TOL, STEP_PARAM_TOL = 2e-6, 1e-4, 1e-3  # 1e-3 = 2·lr: Adam moves ~0 gradients by ±lr
 GRAD_SPREAD_FACTOR = 3  # card gradients vs CPU: ≤ 3 × the CPU's own fp32 spread (see _train_parity)
@@ -563,39 +569,42 @@ def check(condition: bool, message: str) -> None:
         raise AssertionError(message)
 
 
-def _build_wgrad():
-    """Build ``csrc/conv3d_wgrad.cu``; print each kernel's registers and
-    spills (``ptxas -v``) and fail if one spills."""
+def _build_checked(name, expected):
+    """Build ``csrc/<name>.cu``; print each kernel's registers and spills
+    (``ptxas -v``, named ``main<template argument>`` or ``reduce``) and fail
+    if one spills or the kernels are not ``expected``."""
+    import importlib
+
     from predict_pv_yield_tpu_torch import _build
-    from predict_pv_yield_tpu_torch.ops import conv3d_wgrad
 
     start = time.perf_counter()
-    conv3d_wgrad._library()
+    importlib.import_module(f"predict_pv_yield_tpu_torch.ops.{name}")._library()
     seconds = time.perf_counter() - start
-    info = _build.build_info["conv3d_wgrad"]
-    log(f"[build] conv3d_wgrad.cu: {seconds:.2f} s (nvcc {info['seconds']:.2f} s)")
+    info = _build.build_info[name]
+    log(f"[build] {name}.cu: {seconds:.2f} s (nvcc {info['seconds']:.2f} s)")
     if info["log"]:  # built, not reused: ptxas -v for each kernel
         kernels = {}
         for line in info["log"].splitlines():
-            found = re.search(r"Compiling entry function '(\S*conv3d_wgrad\w*)'", line)
+            found = re.search(rf"Compiling entry function '(\S*{name}\w*)'", line)
             if found:
                 width = re.search(r"ILi(\d+)E", found.group(1))
-                name = f"main<{width.group(1)}>" if width else "reduce"
-                kernels[name] = {"registers": 0, "spill_bytes": 0}
+                kernel = f"main<{width.group(1)}>" if width else "reduce"
+                kernels[kernel] = {"registers": 0, "spill_bytes": 0}
             elif kernels and "spill" in line:
-                kernels[name]["spill_bytes"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+                kernels[kernel]["spill_bytes"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
             elif kernels and "Used" in line:
-                kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-        log(f"[build]   conv3d_wgrad kernels (ptxas): {kernels}")
-        check(len(kernels) == 3, f"ptxas reported {sorted(kernels)}, expected main<16>, main<32>, reduce")
-        check(not any(v["spill_bytes"] for v in kernels.values()), "a conv3d_wgrad kernel spills")
+                kernels[kernel]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        log(f"[build]   {name} kernels (ptxas): {kernels}")
+        check(sorted(kernels) == sorted(expected), f"ptxas reported {sorted(kernels)}, expected {sorted(expected)}")
+        check(not any(v["spill_bytes"] for v in kernels.values()), f"a {name} kernel spills")
 
 
 def phase_build():
     from predict_pv_yield_tpu_torch import _build
     from predict_pv_yield_tpu_torch.ops import sep_blur
 
-    _build_wgrad()
+    _build_checked("conv3d_wgrad", ["main<16>", "main<32>", "reduce"])
+    _build_checked("conv3d_dgrad", [f"main<{width}>" for width in range(4, 9)])
     start = time.perf_counter()
     sep_blur._library()
     seconds = time.perf_counter() - start
@@ -1371,6 +1380,88 @@ def _wgrad_kernel(device, flops_peak):
     return rows, total
 
 
+def _dgrad_kernel(device, flops_peak):
+    """7 (w): the data-gradient kernel at the ten tower shapes of the train
+    step (batch 32; the first layers' inputs need no gradient) and at edge
+    shapes, against its plain version and cuDNN's data gradient; two
+    launches bit-equal; device times against the fp32 bound → per-shape
+    rows."""
+    from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.ops import conv3d_dgrad as dgrad
+    from predict_pv_yield_tpu_torch.utils import full_fp32
+
+    generator = torch.Generator(device=device).manual_seed(1)
+
+    def inputs(shape, co, padding):
+        out = [shape[0], co, *(size + 2 * p - 2 for size, p in zip(shape[2:], padding))]
+        grad = torch.randn(out, generator=generator, device=device)
+        weight = torch.randn((co, shape[1], 3, 3, 3), generator=generator, device=device)
+        return grad, weight
+
+    def library(grad, weight, shape, padding):
+        """cuDNN's data gradient (the parent's path), TF32 off."""
+        x = torch.empty(shape, device=device)
+        with full_fp32():
+            return torch.ops.aten.convolution_backward(grad, x, weight, None, (1, 1, 1), padding, (1, 1, 1), False,
+                                                       (0, 0, 0), 1, (True, False, False))[0]
+
+    def held(label, grad, weight, shape, padding):
+        kernel = dgrad.conv3d_dgrad(grad, weight, shape, padding=padding)
+        again = dgrad.conv3d_dgrad(grad, weight, shape, padding=padding)
+        plain = dgrad.conv3d_dgrad_reference(grad, weight, shape, padding)
+        cudnn = library(grad, weight, shape, padding)
+        torch.cuda.synchronize()
+        check(torch.equal(kernel, again), f"conv3d_dgrad {label}: two launches differ")
+        scale = float(plain.abs().max())
+        err, spread = float((kernel - plain).abs().max()) / scale, float((cudnn - plain).abs().max()) / scale
+        tol = max(DGRAD_REL_TOL, DGRAD_SPREAD_FACTOR * spread)
+        check(err <= tol, f"conv3d_dgrad {label} {tuple(shape)}: max|kernel-plain| / max|plain| {err:.3e} > "
+                          f"{tol:.3e} (cuDNN's: {spread:.3e})")
+        return err, spread
+
+    # edge shapes: full padding, no padding (conv3d.py's towers), uneven
+    # channels, two chunks of input and of output channels, a row wider than
+    # 64, a single row, a width under the narrowest tile
+    for label, shape, co, padding in [("pad 1,1,1", (2, 32, 3, 7, 9), 32, (1, 1, 1)),
+                                      ("pad 0", (2, 32, 5, 9, 10), 32, (0, 0, 0)),
+                                      ("c_in 10, c_out 24", (3, 10, 4, 9, 13), 24, (1, 0, 0)),
+                                      ("c_in 40, c_out 40", (2, 40, 3, 6, 70), 40, (0, 1, 1)),
+                                      ("c_out 8, wide", (2, 11, 3, 5, 150), 8, (1, 0, 0)),
+                                      ("one row", (2, 16, 3, 3, 5), 32, (0, 0, 0)),
+                                      ("width 3", (2, 32, 4, 6, 3), 32, (1, 0, 1))]:
+        err, spread = held(label, *inputs(shape, co, padding), shape, padding)
+        log(f"[train] (w) dgrad {label} {shape} <- c_out {co}, padding {padding}: max err {err:.3e} of max |plain|; "
+            f"cuDNN {spread:.3e}")
+
+    model = Model(**{k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"})
+    rows = []
+    for label, shape, padding in _wgrad_cases(model):
+        if label.endswith("conv0"):  # the imagery: no input gradient
+            continue
+        grad, weight = inputs(shape, model.conv3d_channels, padding)
+        err, spread = held(label, grad, weight, shape, padding)
+        flops = 2 * weight.numel() * grad[:, 0].numel()
+        row = {
+            "case": label, "shape": list(shape), "padding": list(padding), "gflop": flops / 1e9,
+            "max_err": err, "cudnn_err": spread,
+            "call_device_ms": device_ms(lambda: dgrad.conv3d_dgrad(grad, weight, shape, padding=padding),
+                                        kernel="conv3d_dgrad_kernel", calls=20),
+            "plain_ms": device_ms(lambda: dgrad.conv3d_dgrad_reference(grad, weight, shape, padding), calls=5),
+            "library_ms": device_ms(lambda: library(grad, weight, shape, padding), calls=10),
+            "bound_ms": flops / flops_peak * 1e3,
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["call_device_ms"]
+        rows.append(row)
+        log("[train] (w) dgrad " + json.dumps(row))
+        del grad, weight
+    total = {key: sum(r[key] for r in rows) for key in ("gflop", "call_device_ms", "plain_ms", "library_ms",
+                                                           "bound_ms")}
+    total["share_of_bound"] = total["bound_ms"] / total["call_device_ms"]
+    total["library_share_of_bound"] = total["bound_ms"] / total["library_ms"]
+    log(f"[train] (w) dgrad, the ten tower shapes: {json.dumps(total)}")
+    return rows, total
+
+
 def phase_train(device, bandwidth, flops_peak):
     """The conv3d_sat_nwp training path at the full width of its YAML."""
     import copy
@@ -1381,6 +1472,7 @@ def phase_train(device, bandwidth, flops_peak):
     from predict_pv_yield_tpu_torch.data.batch import Batch
     from predict_pv_yield_tpu_torch.data.fake import FakeDataset, model_configuration
     from predict_pv_yield_tpu_torch.models.conv3d_sat_nwp import Model
+    from predict_pv_yield_tpu_torch.ops import conv3d_dgrad as dgrad
     from predict_pv_yield_tpu_torch.ops import conv3d_wgrad as wgrad
     from predict_pv_yield_tpu_torch.ops import sep_blur as blur
     from predict_pv_yield_tpu_torch.training.callbacks import EarlyStopping, ModelCheckpoint, load_state
@@ -1390,6 +1482,7 @@ def phase_train(device, bandwidth, flops_peak):
 
     blur.launches = 0
     wgrad_rows, wgrad_total = _wgrad_kernel(device, flops_peak)
+    dgrad_rows, dgrad_total = _dgrad_kernel(device, flops_peak)
     _train_parity(device)
 
     config = {k: v for k, v in CONV3D_SAT_NWP.items() if k != "_target_"}
@@ -1437,11 +1530,12 @@ def phase_train(device, bandwidth, flops_peak):
                               callbacks=[ModelCheckpoint(dirpath=f"{tmp}/ck"), stopper])
             trainer.setup(Model(**config))
             torch.cuda.reset_peak_memory_stats(device)
-            wgrad.launches = 0
+            wgrad.launches = dgrad.launches = 0
             fit_seconds, steps, gaps, rate = _timed_fit(trainer, train_dataloaders=train_batches,
                                                         val_dataloaders=val_batches)
-            fit_launches = wgrad.launches
+            fit_launches, dgrad_fit_launches = wgrad.launches, dgrad.launches
             check(fit_launches > 0, "the fit's backward did not go through conv3d_wgrad")
+            check(dgrad_fit_launches > 0, "the fit's backward did not go through conv3d_dgrad")
             peak = torch.cuda.max_memory_allocated(device)
             check(trainer.global_step == TRAIN_BATCHES and steps == TRAIN_BATCHES, "train steps")
             log(f"[train] fit over {TRAIN_BATCHES}x32 train + {VAL_BATCHES}x32 validation batches (copies, "
@@ -1453,7 +1547,9 @@ def phase_train(device, bandwidth, flops_peak):
             check(step_span.count == TRAIN_BATCHES, f"{step_span.count} train.step spans, expected {TRAIN_BATCHES}")
             log(f"[train] metrics.csv {rows} rows (finite per-step and *_epoch rows); results_epoch_0.csv "
                 f"{results} rows; train.step span: {step_span.count} steps, {step_span.host_s:.3f} s on the host; "
-                f"conv3d_wgrad launched {fit_launches} times ({fit_launches / steps:.2f} a step; 12 tower layers)")
+                f"conv3d_wgrad launched {fit_launches} times ({fit_launches / steps:.2f} a step; 12 tower layers), "
+                f"conv3d_dgrad {dgrad_fit_launches} ({dgrad_fit_launches / steps:.2f} a step; 10 with an input "
+                f"gradient)")
 
             # (c) round trip of `last` into a fresh trainer
             last = f"{tmp}/ck/last"
@@ -1510,7 +1606,8 @@ def phase_train(device, bandwidth, flops_peak):
     return {"train_step_ms": step_ms, "train_step_deterministic_ms": deterministic_ms,
             "train_bound_ms": bound_ms, "train_examples_per_s": rate,
             "train_busy_share": busy, "train_fit_seconds": fit_seconds, "train_peak_bytes": peak,
-            "wgrad_rows": wgrad_rows, "wgrad_total": wgrad_total, "wgrad_fit_launches": fit_launches}
+            "wgrad_rows": wgrad_rows, "wgrad_total": wgrad_total, "wgrad_fit_launches": fit_launches,
+            "dgrad_rows": dgrad_rows, "dgrad_total": dgrad_total, "dgrad_fit_launches": dgrad_fit_launches}
 
 
 def _stream_archive(root, seed=0, compressor="zlib"):
@@ -4807,6 +4904,18 @@ def main() -> int:
         "bound_ms": trained["wgrad_total"]["bound_ms"],
         "bound_by": "operations",
         "library_ms": trained["wgrad_total"]["library_ms"],
+    }, {
+        "name": "conv3d_dgrad",
+        "route": "cuda",
+        "source": "predict_pv_yield_tpu_torch/csrc/conv3d_dgrad.cu",
+        "replaces": None,
+        "launches_in_fit": trained["dgrad_fit_launches"],
+        "max_err": max(r["max_err"] for r in trained["dgrad_rows"]),
+        "ms": trained["dgrad_total"]["call_device_ms"],
+        "plain_ms": trained["dgrad_total"]["plain_ms"],
+        "bound_ms": trained["dgrad_total"]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": trained["dgrad_total"]["library_ms"],
     }]
     log(json.dumps({"pairs_per_s_256": headline_rate, "pairs_per_s_704x548": production_rate, **serve,
                     **trained, **data, "perceivers": perceivers, "zoo": zoo, "formats": formats,

@@ -47,6 +47,8 @@
 #include <atomic>
 #include <cstddef>
 
+#include "conv3d_common.cuh"
+
 namespace {
 
 constexpr int kCoChunk = 32;  // output channels of a block
@@ -56,7 +58,6 @@ constexpr int kCoPitch = kCoChunk + 4;  // floats per column of a dY row
 constexpr int kMaxTileW = 64;  // output columns per row tile, at most
 constexpr int kReduceCols = 32;
 constexpr int kReduceSlices = 8;
-constexpr int kMaxDevices = 64;
 
 // The block's shape for kCi (16 or 32) input channels a chunk.
 template <int kCi>
@@ -113,17 +114,6 @@ __device__ __forceinline__ Item advance(const Shape& s, Item it) {
     it.cols = min(s.tile_w, s.wo - it.c0);
   }
   return it;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Loads `rows` padded input rows ending at row it.h + 2 of the item's three
@@ -388,16 +378,9 @@ cudaError_t plan(int n, int ci, int co, int t, int h, int w, int pt, int ph, int
   if (p->chunks > 65535) return cudaErrorInvalidValue;
   p->smem = p->ci_tile == 16 ? smem_bytes<16>(s.tile_w) : smem_bytes<32>(s.tile_w);
 
-  static std::atomic<int> sms[kMaxDevices];  // zero: not read yet
-  int device = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  int device = 0, count = 0, per_sm = 0;
+  cudaError_t err = current_device_sms(&device, &count);
   if (err != cudaSuccess) return err;
-  int count = device < kMaxDevices ? sms[device].load() : 0;
-  if (count == 0) {
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    if (device < kMaxDevices) sms[device].store(count);
-  }
   err = p->ci_tile == 16 ? blocks_per_sm<16>(device, p->smem, &per_sm)
                          : blocks_per_sm<32>(device, p->smem, &per_sm);
   if (err != cudaSuccess) return err;

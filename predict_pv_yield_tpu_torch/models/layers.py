@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from predict_pv_yield_tpu_torch.ops.conv3d_dgrad import conv3d_dgrad
 from predict_pv_yield_tpu_torch.ops.conv3d_wgrad import conv3d_wgrad
 
 
@@ -88,10 +89,11 @@ def tower_names(prefix: str, num_layers: int) -> Tuple[str, ...]:
 
 def wgrad_kernel_path(device_type: str, dtype: torch.dtype, weight: torch.Tensor) -> bool:
     """Whether a tower convolution of an input on ``device_type`` of
-    ``dtype`` sends its weight gradient to the CUDA kernel
-    (``ops/conv3d_wgrad.py``): on the card, computing in fp32 (no autocast
-    to a narrower type: cuDNN's tensor cores are the tool there), with a
-    weight gradient to take."""
+    ``dtype`` sends its gradients to the CUDA kernels (``ops/conv3d_wgrad.py``
+    for the weight and bias, ``ops/conv3d_dgrad.py`` for the input where it
+    needs one): on the card, computing in fp32 (no autocast to a narrower
+    type: cuDNN's tensor cores are the tool there), with a weight gradient
+    to take."""
     if device_type != "cuda" or dtype != torch.float32 or weight.dtype != torch.float32:
         return False
     if not (torch.is_grad_enabled() and weight.requires_grad):
@@ -100,9 +102,8 @@ def wgrad_kernel_path(device_type: str, dtype: torch.dtype, weight: torch.Tensor
 
 
 class _TowerConvFunction(torch.autograd.Function):
-    """``F.conv3d`` forward; backward: the input's gradient from
-    ``aten::convolution_backward`` (cuDNN) where it is needed, the weight's
-    and the bias's from the CUDA kernel."""
+    """``F.conv3d`` forward; backward: the input's gradient where it is
+    needed, and the weight's and the bias's, from the CUDA kernels."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], padding) -> torch.Tensor:
@@ -116,17 +117,15 @@ class _TowerConvFunction(torch.autograd.Function):
         grad = grad.contiguous()
         grad_x = None
         if ctx.needs_input_grad[0]:
-            grad_x = torch.ops.aten.convolution_backward(
-                grad, x, weight, None, (1, 1, 1), ctx.padding, (1, 1, 1), False, (0, 0, 0), 1, (True, False, False)
-            )[0]
+            grad_x = conv3d_dgrad(grad, weight, x.shape, padding=ctx.padding)
         grad_weight, grad_bias = conv3d_wgrad(x, grad, padding=ctx.padding)
         return grad_x, grad_weight, grad_bias if ctx.needs_input_grad[2] else None, None
 
 
 class TowerConv3d(nn.Conv3d):
     """A tower's 3×3×3 ``nn.Conv3d`` (same parameters, names and
-    ``state_dict``) whose weight and bias gradients take the hand-written
-    CUDA kernel where :func:`wgrad_kernel_path` says so; every other case
+    ``state_dict``) whose gradients take the hand-written CUDA kernels
+    where :func:`wgrad_kernel_path` says so; every other case
     (the CPU, a bf16 autocast, no gradient) is ``nn.Conv3d``'s own."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
